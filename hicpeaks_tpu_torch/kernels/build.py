@@ -1,0 +1,127 @@
+"""Build and load the package's CUDA kernels.
+
+The sources under ``hicpeaks_tpu_torch/csrc/`` are compiled by ``nvcc``
+for Hopper (``sm_90a``) into ONE shared library with a plain C interface,
+loaded with ``ctypes``.  The build happens at first use, from the
+repository's sources only, into ``build/kernels/`` at the repository root;
+the library's file name carries a hash of the sources and flags, so an
+edit rebuilds it.  A failed build raises: nothing falls back to the plain
+PyTorch twins.
+
+Floating-point contraction is off (``--fmad=false``) because the pass-B
+kernel replays the ring scan's add chains bit for bit.
+"""
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG_DIR, 'csrc')
+BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), 'build', 'kernels')
+
+NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-O3',
+              '--fmad=false', '-std=c++17', '-shared', '-Xcompiler', '-fPIC',
+              '-Xptxas', '-v')
+
+_vp = ctypes.c_void_p
+_i32 = ctypes.c_int
+_i64 = ctypes.c_longlong
+_f32 = ctypes.c_float
+
+#: C entry points: name -> argtypes (each returns the cudaError_t of its
+#: launch as an int).
+SIGNATURES = {
+    # raw, cand, num_p, Lp, meta, n_e, maxw, thr, counts, stream
+    'hp_scan_pass_a': [_vp, _vp, _i32, _i32, _vp, _i32, _i32, _f32, _vp,
+                       _vp],
+    # raw, cband, eband, cand, allowed, num_p, Lp, meta, n_e, n_p, maxw,
+    # thr, out, stream
+    'hp_scan_pass_b': [_vp, _vp, _vp, _vp, _vp, _i32, _i32, _vp, _i32, _i32,
+                       _i32, _f32, _vp, _vp],
+    # oc, cid, n, B, S, C, hist, blocks, stream
+    'hp_chunk_hist': [_vp, _vp, _i64, _i32, _i32, _i32, _vp, _i32, _vp],
+}
+
+
+class KernelLibrary:
+    """The loaded shared library plus what its build printed."""
+
+    def __init__(self, path, build_log, build_s):
+        self.path = path
+        self.build_log = build_log
+        self.build_s = build_s
+        self.lib = ctypes.CDLL(path)
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(self.lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+
+
+def _sources():
+    return sorted(glob.glob(os.path.join(CSRC_DIR, '*.cu'))
+                  + glob.glob(os.path.join(CSRC_DIR, '*.cuh')))
+
+
+def _nvcc():
+    for cand in (shutil.which('nvcc'),
+                 os.path.join(os.environ.get('CUDA_HOME', '/usr/local/cuda'),
+                              'bin', 'nvcc')):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError('nvcc not found (PATH, $CUDA_HOME/bin): the CUDA '
+                       'kernels of hicpeaks_tpu_torch cannot be built')
+
+
+def library_path():
+    """Build-output path for the current sources and flags."""
+    h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(os.path.basename(src).encode())
+        with open(src, 'rb') as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f'libhicpeaks_kernels_{h.hexdigest()[:16]}.so')
+
+
+def build():
+    """Compile the kernels if the hashed library is missing; returns
+    (path, compiler output, seconds spent)."""
+    path = library_path()
+    if os.path.exists(path):
+        return path, '', 0.0
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f'{path}.tmp.{os.getpid()}'
+    cmd = [_nvcc(), *NVCC_FLAGS, '-o', tmp,
+           *[s for s in _sources() if s.endswith('.cu')]]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    dt = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f'nvcc failed (rc {proc.returncode}):\n'
+                           f'{" ".join(cmd)}\n{proc.stdout}{proc.stderr}')
+    os.replace(tmp, path)
+    return path, proc.stdout + proc.stderr, dt
+
+
+_LOCK = threading.Lock()
+_LOADED = []
+
+
+def load() -> KernelLibrary:
+    """The kernel library, built on first use (thread-safe)."""
+    with _LOCK:
+        if not _LOADED:
+            _LOADED.append(KernelLibrary(*build()))
+        return _LOADED[0]
+
+
+def check(err, what):
+    """Raise if a launcher returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f'{what}: CUDA launch failed with error {err}')

@@ -1,0 +1,231 @@
+"""Sheets and the batched lambda-chunk scorer in PyTorch.
+
+Port of the parts of ``hicpeaks_tpu/ops/score.py`` that the pyHICCUPS main
+path runs: the sheet derivation (``_build_sheets_jit`` for a float raw
+slab), the gap filter, expected values, lambda chunks and their edge
+suspects, the (chunk, count) histogram BH keep mask, its q table, and the
+keep-mask compaction.  Dtypes follow JAX's: the raw slab becomes float32,
+every other sheet keeps its vector's dtype, so float64 bands compute what
+the JAX package computes under its x64 flag.
+
+What the port leaves out, and why: the TPU transfer encodings
+(``_unpack_rows``), the split histogram (``chunk_hist_split`` cut MXU work;
+an atomic histogram's cost does not grow with the column count) and the
+fixed-cap compaction tiers (``torch.nonzero`` sizes the output from the
+count).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .cuda_hist import chunk_hist
+
+
+def shear_bcast(vec, num_p):
+    """out[d, x] = vec[x + d], zero beyond the end: a strided re-read of
+    the zero-padded vector (row d starts one element later per row)."""
+    Lp = vec.shape[0]
+    wpad = torch.cat([vec, vec.new_zeros(num_p)])
+    return wpad.as_strided((num_p, Lp), (1, 1))
+
+
+def _shift1(A, k):
+    """out[i] = A[i+k], zero outside bounds."""
+    n = A.shape[0]
+    if k == 0:
+        return A
+    if abs(k) >= n:
+        return torch.zeros_like(A)
+    if k > 0:
+        return torch.cat([A[k:], A.new_zeros(k)])
+    return torch.cat([A.new_zeros(-k), A[:k]])
+
+
+def gap_reject_device(gap, num_p, L, s):
+    """drop[d, x] = any gap bin inside the reference's exclusive-upper
+    windows around x or y = x + d (callers.py:291-312); the twin of
+    ``hicpeaks_tpu.ops.score.gap_reject_device``."""
+    Lp = gap.shape[0]
+    pos = torch.arange(Lp, device=gap.device)
+    g = (gap & (pos < L)).to(torch.int32)
+    A = torch.cumsum(g, 0, dtype=torch.int32)         # A[i] = G[i+1]
+    total = A[-1]
+    g_last = torch.where(pos == L - 1, g, 0).sum(dtype=torch.int32)
+    # upper branch pos+s < L: G[pos+s] = A[pos+s-1]; else G[L-1]
+    Gu = torch.where(pos + s < L, _shift1(A, s - 1), total - g_last)
+    # lower branch pos > s: G[pos-s] = A[pos-s-1]; else G[0] = 0
+    Gl = torch.where(pos > s, _shift1(A, -(s + 1)), 0)
+    cnt = torch.where(pos < L, Gu - Gl, 0)
+    return (cnt[None, :] + shear_bcast(cnt, num_p)) > 0
+
+
+def build_sheets(raw, w0, bias, IR, gap, ww_min, L, d_lo, d_hi, gap_s):
+    """Every dense sheet the engine needs, from one raw slab and O(L)
+    vectors (``_build_sheets_jit``): returns (raw f32, cband, eband, Bprod,
+    gap_drop, cand).  The multiply order ``raw * w0[x] * w0[x+d]`` is
+    JAX's, so float32 sheets are bit-identical to it."""
+    num_p, Lp = raw.shape
+    dev = raw.device
+    drow = torch.arange(num_p, device=dev)[:, None]
+    col = torch.arange(Lp, device=dev)[None, :]
+
+    raw = raw.to(torch.float32)
+    cband = raw * w0[None, :] * shear_bcast(w0, num_p)
+    cband = torch.where(drow < ww_min, 0.0, cband)
+    eband = torch.where(col < (L - drow), IR[:, None], 0.0)
+    Bprod = bias[None, :] * shear_bcast(bias, num_p)
+    gap_drop = gap_reject_device(gap, num_p, L, gap_s)
+    cand = (raw != 0) & (drow >= d_lo) & (drow <= d_hi)
+    return raw, cband, eband, Bprod, gap_drop, cand
+
+
+def expected_observed(raw, cband, IR, Bprod, bSV, bEV, wi, cand_mask, L):
+    """E, O, ICE, Fold, the scored mask and the raw EM*ratio product (the
+    hiccups Y-background postcheck reads it, callers.py:329-331).
+    ``bSV``/``bEV``/``wi`` may carry a leading batch axis."""
+    num_p, Lp = raw.shape
+    dev = raw.device
+    drow = torch.arange(num_p, device=dev)[:, None]
+    col = torch.arange(Lp, device=dev)[None, :]
+    EM = torch.where(col < (L - drow), IR[:, None], 0.0)
+
+    mask = (bEV != 0) & (drow >= wi) & cand_mask
+    ratio = torch.where(mask, bSV / torch.where(bEV != 0, bEV, 1.0), 0.0)
+    prod = EM * ratio
+
+    E = prod * Bprod
+    scored = (prod != 0) & (E > 0)
+    Fold = torch.where(scored, raw / torch.where(scored, E, 1.0), 0.0)
+    return E, raw, cband, Fold, scored, prod
+
+
+def poisson_sf(O, lam):
+    """P(X > O) for X ~ Poisson(lam), X's CDF evaluated at floor(O)."""
+    return torch.special.gammainc(torch.floor(O) + 1.0, lam)
+
+
+def _log2_t(E, scored):
+    """(safeE, t = 3*log2(E)) in JAX's operation order."""
+    safeE = torch.where(scored & (E > 0), E, 1.0)
+    ln2 = torch.tensor(math.log(2.0), dtype=E.dtype, device=E.device)
+    return safeE, 3.0 * (torch.log(safeE) / ln2)
+
+
+def lambda_chunks(E, scored):
+    """Chunk id per pixel: chunk i covers the OPEN interval
+    (2^((i-2)/3), 2^((i-1)/3)), chunk 1 is (0, 1); pixels exactly on an
+    edge belong to no chunk (callers.py:38).  Returns (cid, right_edge,
+    valid)."""
+    safeE, t = _log2_t(E, scored)
+    cid = torch.floor(t).to(torch.int32) + 2
+    cid = torch.clamp(cid, min=1)
+
+    def edges(c):
+        lv = torch.where(c == 1, 0.0,
+                         torch.pow(2.0, (c - 2).to(E.dtype) / 3.0))
+        return lv, torch.pow(2.0, (c - 1).to(E.dtype) / 3.0)
+
+    # float-rounding guard: nudge into the neighbouring chunk when the
+    # computed id misses the strict-open membership test
+    lv, rv = edges(cid)
+    cid = torch.where((safeE <= lv) & (cid > 1), cid - 1,
+                      torch.where(safeE >= rv, cid + 1, cid))
+    lv, rv = edges(cid)
+    valid = scored & (safeE > lv) & (safeE < rv)
+    return cid, rv, valid
+
+
+def lambda_suspects(E, scored, margin):
+    """Pixels whose lambda-chunk membership is not provably the float64
+    one: ``t = 3*log2(E)`` within ``margin`` of an integer (see
+    ``hicpeaks_tpu.ops.score.lambda_suspects``)."""
+    _, t = _log2_t(E, scored)
+    return scored & (torch.abs(t - torch.round(t)) < margin)
+
+
+def chunk_rows(o_cap, sig=0.05):
+    """Chunk-row count sufficient for exact histogram BH at this count cap
+    (``hicpeaks_tpu.ops.score.chunk_rows``: every chunk whose right edge is
+    >= 2*o_cap folds into the overflow row S-1 without changing any
+    emitted statistic)."""
+    if not o_cap or o_cap < 1024 or sig > 0.2:
+        return 128
+    s = int(math.ceil(3 * math.log2(o_cap))) + 5
+    return min(128, -(-s // 8) * 8)
+
+
+def qtab_from_hist(hist2, dtype, period=None):
+    """BH q table from the exact integer histogram; ``period``: the
+    Poisson right edge of row r is that of local chunk ``r % period``."""
+    S, C = hist2.shape
+    dev = hist2.device
+    m = hist2.sum(dim=1, keepdim=True).to(dtype)
+    # rank_max(s, O): pixels with count >= O  (descending-O cumulative)
+    rank_max = torch.flip(torch.cumsum(torch.flip(hist2, (1,)), 1),
+                          (1,)).to(dtype)
+    ids = torch.arange(S, dtype=torch.int32, device=dev)
+    if period is not None:
+        ids = ids % period
+    rv = torch.pow(2.0, (ids.to(dtype) - 1.0) / 3.0)[:, None]
+    counts = torch.arange(C, dtype=dtype, device=dev)[None, :]
+    ptab = poisson_sf(counts, rv)
+    # empty buckets carry a finite sentinel > 1; real q-values are <= 1
+    qraw = torch.where(rank_max > 0,
+                       torch.clamp(ptab * m / torch.clamp(rank_max, min=1.0),
+                                   max=1.0),
+                       2.0)
+    return torch.cummin(qraw, dim=1).values
+
+
+def chunk_bh_keep_batched(O, cid, valid, sig, B, n_chunks=128, o_cap=32768,
+                          slack=0.0):
+    """Per-background histogram BH keep mask over ``B`` backgrounds
+    ([B, num_p, Lp] ``cid``/``valid``; ``O`` is the shared [num_p, Lp]
+    observed sheet).
+
+    All B histograms come from ONE histogram launch with background b's
+    rows at ``b*S`` (row ``b*S`` its invalid trash row).  ``q <= sig`` is
+    ``count >= thr[chunk]`` because q is nonincreasing in the count within
+    a chunk; the per-pixel threshold is the gather ``thr2[b, clamp(cid, 1,
+    S-1)]``, the same integer JAX forms as a telescoping broadcast-sum.
+    ``slack`` inflates ``sig`` so the mask is a superset of the float64
+    rejection set.
+
+    Returns (keep [B, ...], qtab [B*S, C], hist [B*S, C] int32,
+    thr [B, S] int32)."""
+    S, C = n_chunks, o_cap + 1
+    Oc = torch.clamp(torch.floor(O), 0, C - 1)
+    cidc = torch.clamp(cid, 1, S - 1)
+    cid0 = torch.where(valid, cidc, 0)
+    hist = chunk_hist(Oc.to(torch.int32).reshape(-1),
+                      cid0.reshape(B, -1), S, C)            # [B*S, C]
+    qtab = qtab_from_hist(hist, O.dtype, period=S)
+    sig_t = torch.tensor(sig, dtype=O.dtype, device=O.device)
+    thr = (qtab > sig_t * (1.0 + slack)).to(O.dtype).sum(dim=1)
+    thr2 = thr.reshape(B, S)
+    th = torch.gather(thr2, 1, cidc.reshape(B, -1).to(torch.int64)) \
+        .reshape(cid.shape)
+    keep = valid & (Oc >= th)
+    keep = keep | (~valid & (sig_t >= 1.0))
+    return keep, qtab, hist, thr.to(torch.int32).reshape(B, S)
+
+
+def compact_mask_batched(keep):
+    """Row-major (d, x) indices of each background's True cells.
+
+    Returns (count [B] int32, d_idx [B, K], x_idx [B, K]) with K the
+    largest count; entries past a background's count point at the last
+    cell, as in ``hicpeaks_tpu.ops.score.compact_mask_batched``."""
+    B, R, C = keep.shape
+    nz = torch.nonzero(keep.reshape(B, -1))          # row-major (b, flat)
+    cnt = torch.bincount(nz[:, 0], minlength=B).to(torch.int32)
+    K = int(cnt.max())
+    pos = torch.full((B, K), R * C - 1, dtype=torch.int64,
+                     device=keep.device)
+    start = torch.cumsum(cnt, 0) - cnt
+    slot = torch.arange(nz.shape[0], device=keep.device) \
+        - start.to(torch.int64)[nz[:, 0]]
+    pos[nz[:, 0], slot] = nz[:, 1]
+    return cnt, (pos // C).to(torch.int32), (pos % C).to(torch.int32)

@@ -1,0 +1,82 @@
+"""The port's genome API (hicpeaks_tpu_torch/api.py) against the JAX API,
+and its per-chromosome checkpoints and resume."""
+import os
+
+import numpy as np
+import pytest
+
+from hicpeaks_tpu import api as japi
+from hicpeaks_tpu.core.config import HiccupsConfig
+from hicpeaks_tpu.io.coolerlite import CoolerLite, binnify, create_cooler_file
+from hicpeaks_tpu.io.synth import synthesize_chrom
+from hicpeaks_tpu_torch import api as tapi
+from hicpeaks_tpu_torch.core import engine as tengine
+
+CFG = HiccupsConfig(pw=(1,), ww=(3,), maxww=8, maxapart=1500000)
+
+
+@pytest.fixture(scope='module')
+def uri(tmp_path_factory):
+    res = 25000
+    sizes, chunks, weights = {}, [], []
+    offset = 0
+    for c, nb, seed in (('1', 220, 3), ('2', 180, 4)):
+        b1, b2, ct, _, bias = synthesize_chrom(n_bins=nb, res=res, seed=seed,
+                                               n_loops=10, depth=60.0)
+        sizes[c] = nb * res
+        chunks.append({'bin1_id': b1 + offset, 'bin2_id': b2 + offset,
+                       'count': ct})
+        w = np.full(nb, np.nan)
+        ok = bias > 0
+        w[ok] = 1.0 / bias[ok]
+        weights.append(w)
+        offset += nb
+    u = f'{tmp_path_factory.mktemp("api") / "two.cool"}::{res}'
+    create_cooler_file(u, binnify(sizes, res), chunks,
+                       metadata={'onlyIntra': 'True'})
+    CoolerLite(u).write_weights(np.concatenate(weights))
+    return u
+
+
+@pytest.mark.parametrize('dtype', [np.float64, np.float32])
+def test_call_hiccups_matches_jax_api(uri, dtype):
+    want = japi.call_hiccups(uri, CFG, dtype=dtype)
+    got = tapi.call_hiccups(uri, CFG, device='cpu', dtype=dtype)
+    assert set(got) == set(want) == {'1', '2'}
+    assert sum(len(t) for t in want.values()) > 0
+    for chrom in want:
+        assert set(got[chrom]) == set(want[chrom])
+        for k, v in want[chrom].items():
+            assert tuple(got[chrom][k][:3]) == tuple(v[:3])
+            np.testing.assert_allclose(got[chrom][k][3:], v[3:], rtol=1e-12,
+                                       atol=1e-300)
+
+
+def test_checkpoint_resume(uri, tmp_path, monkeypatch):
+    ck = str(tmp_path / 'ckpt')
+    first = tapi.call_hiccups(uri, CFG, device='cpu', checkpoint_dir=ck)
+    for c in ('1', '2'):
+        assert os.path.exists(os.path.join(ck, f'hiccups.{c}.json'))
+
+    # a resumed run reads every chromosome from disk: the engine must not run
+    def no_engine(*a, **k):
+        raise AssertionError('resumed run recomputed a chromosome')
+
+    monkeypatch.setattr(tengine, 'hiccups_chrom', no_engine)
+    second = tapi.call_hiccups(uri, CFG, device='cpu', checkpoint_dir=ck)
+    assert second == first
+
+
+def test_loader_failure_propagates(uri, monkeypatch):
+    """A band-build failure on the prefetch thread surfaces as the run's
+    exception, and the thread exits."""
+    import threading
+
+    def boom(*a, **k):
+        raise OSError('disk gone')
+
+    monkeypatch.setattr(tapi, 'bands_from_cooler', boom)
+    with pytest.raises(OSError, match='disk gone'):
+        tapi.call_hiccups(uri, CFG, device='cpu')
+    assert not any(t.name == 'hiccups-band-loader' and t.is_alive()
+                   for t in threading.enumerate())

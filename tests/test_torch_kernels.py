@@ -1,0 +1,116 @@
+"""The CUDA kernels (hicpeaks_tpu_torch/csrc/) against their plain PyTorch
+twins at small shapes, on the card.
+
+These need a CUDA card and nvcc; they carry the ``cuda`` marker and skip
+elsewhere.  On a GPU host: ``python -m pytest tests/test_torch_kernels.py``
+(chip_smoke.py makes the same checks at the main path's shapes)."""
+import numpy as np
+import pytest
+import torch
+
+from hicpeaks_tpu.core import poolplan
+from hicpeaks_tpu_torch.ops import cuda_hist, cuda_scan
+from hicpeaks_tpu_torch.ops import scan as twin
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def device():
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card: the CUDA kernels have no CPU mode')
+    return torch.device('cuda')
+
+
+def _bands(num_p, Lp, L, seed, device):
+    rng = np.random.default_rng(seed)
+    raw = ((rng.random((num_p, Lp)) < 0.5)
+           * rng.poisson(5.0, (num_p, Lp))).astype(np.float32)
+    cband = (raw * rng.random((num_p, Lp))).astype(np.float32)
+    drow = np.arange(num_p)[:, None]
+    col = np.arange(Lp)[None, :]
+    eband = np.where((col < (L - drow)) & (drow >= 3), 1.3, 0.0
+                     ).astype(np.float32)
+    cand = (raw != 0) & (drow >= 3) & (col < (L - drow))
+    return [torch.from_numpy(a).to(device)
+            for a in (raw, cband, eband, cand)]
+
+
+@pytest.mark.parametrize('num_p,Lp,L', [(64, 256, 243), (17, 139, 131),
+                                        (8, 384, 380), (96, 128, 97)])
+@pytest.mark.parametrize('pw,ww,maxww', [([2], [5], 7), ([1, 2], [3, 5], 10)])
+def test_scan_kernels_match_twin(device, num_p, Lp, L, pw, ww, maxww):
+    raw, cband, eband, cand = _bands(num_p, Lp, L, num_p + Lp, device)
+    plan = tuple(poolplan.hiccups_pool_plan(pw, ww, maxww))
+    p_list = tuple(sorted(set(pw)))
+    got_a = cuda_scan.scan_pass_a(raw, cand, plan, p_list, 8)
+    want_a = twin.scan_pass_a(raw, cand, plan, p_list, 8)
+    torch.cuda.synchronize()
+    assert torch.equal(got_a, want_a)
+
+    allowed = torch.ones(len(plan), dtype=torch.bool, device=device)
+    allowed[-1] = False
+    got_b = cuda_scan.scan_pass_b(raw, cband, eband, cand, allowed, plan,
+                                  p_list, 8)
+    want_b = twin.scan_pass_b(raw, cband, eband, cand, allowed, plan,
+                              p_list, 8)[2]
+    torch.cuda.synchronize()
+    for p in p_list:
+        for t in range(4):
+            assert torch.equal(got_b[p][t], want_b[p][t]), (p, t)
+
+
+@pytest.mark.parametrize('n,S,C,B', [(5000, 40, 1025, 2), (70000, 128, 513, 1),
+                                     (300, 16, 33, 3), (20000, 128, 4097, 2)])
+def test_hist_kernel_matches_twin(device, n, S, C, B):
+    """Includes a table too large for shared memory (global atomics)."""
+    rng = np.random.default_rng(n)
+    oc = torch.from_numpy(rng.integers(-1, C + 1, n).astype(np.int32))
+    cid = torch.from_numpy(rng.integers(-1, S + 1, (B, n)).astype(np.int32))
+    got = cuda_hist.chunk_hist(oc.to(device), cid.to(device), S, C)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), cuda_hist.chunk_hist_torch(oc, cid, S, C))
+
+
+@pytest.mark.parametrize('pw,ww', [((2,), (5,)), ((1, 2), (3, 5))])
+def test_hiccups_chrom_on_card_matches_cpu(device, pw, ww):
+    """The main path on the card (kernels) gives the CPU run's table
+    (twins): the float64 host completion absorbs the ulp-level differences
+    of CUDA's f32 log/pow/gammainc."""
+    from hicpeaks_tpu.core.config import HiccupsConfig
+    from hicpeaks_tpu.ops.band import build_bands
+    from hicpeaks_tpu_torch.core.engine import hiccups_chrom
+    from hicpeaks_tpu_torch.synth import synthesize_chrom
+    res, L, maxapart, maxww = 10000, 1500, 600000, 10
+    num = maxapart // res + maxww + 1
+    b1, b2, ct, _, bias = synthesize_chrom(n_bins=L, res=res, seed=1,
+                                           depth=40.0, n_loops=60,
+                                           decay=0.75,
+                                           max_loop_span_bins=num - 12)
+    w = np.full(L, np.nan)
+    w[bias > 0] = 1.0 / bias[bias > 0]
+    cfg = HiccupsConfig(pw=pw, ww=ww, maxww=maxww, maxapart=maxapart)
+
+    def table(dev):
+        bands = build_bands(b1, b2, ct, w, L, num, min(ww), res)
+        return hiccups_chrom(bands, cfg, device=dev)
+
+    launches = cuda_scan.scan_pass_b.launches
+    got, want = table(device), table('cpu')
+    assert cuda_scan.scan_pass_b.launches == launches + 1
+    assert len(want) > 0 and set(got) == set(want)
+    for k, v in want.items():
+        assert tuple(got[k][:3]) == tuple(v[:3])
+        np.testing.assert_allclose(got[k][3:], v[3:], rtol=1e-12,
+                                   atol=1e-300)
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take(device):
+    raw, cband, eband, cand = _bands(16, 64, 60, 0, device)
+    plan = tuple(poolplan.hiccups_pool_plan([2], [5], 7))
+    with pytest.raises(TypeError):
+        cuda_scan.scan_pass_a(raw.double(), cand, plan, (2,), 8)
+    with pytest.raises(ValueError):
+        cuda_scan.scan_pass_a(raw.t(), cand.t(), plan, (2,), 8)
+    with pytest.raises(TypeError):
+        cuda_hist.chunk_hist(raw.reshape(-1), raw.reshape(1, -1), 4, 4)
