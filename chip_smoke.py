@@ -18,11 +18,21 @@ without a CUDA card.  Phases:
    relative stat difference < 1e-8;
 4. chr1 scale at the CLI default span (L=24,900 at 10 kb, 10 Mb): the
    steady per-chromosome wall of the second of two runs, and the kernel
-   checks of phase 2 on that chromosome's sheets.
+   checks of phase 2 on that chromosome's sheets;
+5. pyBHFDR at the bench shape and the pyBHFDR CLI defaults (pw=2, ww=5,
+   maxww=10, 2 Mb): the scan kernels against their twins on the pyBHFDR
+   plan and gate, the global-BH iteration count, ``bhfdr_chrom`` on the
+   card with its kernel launch counts, and its table against the float64
+   oracle (identical loci and geometry, max relative stat difference
+   < 1e-8, identical sorted 13-column bedpe lines);
+6. pyBHFDR at chr1 scale (L=24,900 at 10 kb, 2 Mb): the steady wall of the
+   second of two ``bhfdr_chrom`` calls, and the scan-kernel checks of
+   phase 5 on that chromosome's sheets.
 
 The line before the last is one JSON object with a record per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
+import io
 import json
 import os
 import statistics
@@ -52,7 +62,7 @@ def synth_bands(L, maxapart, seed, n_loops, span, lane_pad):
     benchmarks/genome_scale.py build theirs."""
     import numpy as np
     from hicpeaks_tpu.ops.band import build_bands
-    from hicpeaks_tpu_torch.synth import synthesize_chrom
+    from hicpeaks_tpu_torch.hostio import synthesize_chrom
     num = maxapart // RES + MAXWW + 1
     b1, b2, ct, _, bias_vec = synthesize_chrom(
         n_bins=L, res=RES, seed=seed, depth=40.0, n_loops=n_loops,
@@ -89,10 +99,10 @@ def max_abs(a, b):
     return float(torch.max(torch.abs(a.double() - b.double())))
 
 
-def kernel_checks(bands, cfg, device, reps):
-    """Each kernel against its twin on the sheets the main path gives it.
-    Raises on any disagreement; returns {name: {max_abs_err, ms,
-    plain_ms}}."""
+def kernel_checks(bands, cfg, device, reps, caller='hiccups'):
+    """Each kernel of ``caller``'s path ('hiccups' or 'bhfdr') against its
+    twin on the sheets, plan and freeze gate that path gives it.  Raises on
+    any disagreement; returns {name: {max_abs_err, ms, plain_ms}}."""
     import torch
     from hicpeaks_tpu.core import poolplan as host_poolplan
     from hicpeaks_tpu_torch.core import engine, poolplan
@@ -100,15 +110,21 @@ def kernel_checks(bands, cfg, device, reps):
     from hicpeaks_tpu_torch.ops import scan as twin
 
     res = bands.res
-    plan = tuple(host_poolplan.hiccups_pool_plan(cfg.pw, cfg.ww, cfg.maxww))
-    p_list = tuple(sorted(set(cfg.pw)))
-    thr = cfg.min_local_reads
-    total = bands.candidate_total(min(cfg.ww), cfg.maxapart // res)
+    if caller == 'hiccups':
+        plan = tuple(host_poolplan.hiccups_pool_plan(cfg.pw, cfg.ww,
+                                                     cfg.maxww))
+        p_list = tuple(sorted(set(cfg.pw)))
+        thr, d_lo = cfg.min_local_reads, min(cfg.ww)
+    else:
+        plan = tuple(host_poolplan.bhfdr_pool_plan(cfg.pw, cfg.ww,
+                                                   cfg.maxww))
+        p_list = (cfg.pw,)
+        thr, d_lo = engine._BHFDR_THR, cfg.ww
+    total = bands.candidate_total(d_lo, cfg.maxapart // res)
     ops = engine.bands_to_device(bands, device)
     raw, cband, eband, Bprod, gap_drop, cand = score.build_sheets(
         ops['raw'], ops['w0'], ops['bias'], ops['IR'], ops['gap'],
-        bands.ww_min, bands.L, min(cfg.ww), cfg.maxapart // res,
-        min(cfg.ww))
+        bands.ww_min, bands.L, d_lo, cfg.maxapart // res, d_lo)
     out = {}
 
     a_k = cuda_scan.scan_pass_a(raw, cand, plan, p_list, thr)
@@ -123,8 +139,14 @@ def kernel_checks(bands, cfg, device, reps):
         plain_ms=cuda_ms(lambda: twin.scan_pass_a(raw, cand, plan, p_list,
                                                   thr), reps))
 
-    allowed = poolplan.device_allowed_hiccups(
-        a_k, total, host_poolplan.left_threshold(total), plan, cfg.ww)
+    t_left = host_poolplan.left_threshold(total)
+    if caller == 'hiccups':
+        allowed = poolplan.device_allowed_hiccups(a_k, total, t_left, plan,
+                                                  cfg.ww)
+    else:
+        allowed = poolplan.device_allowed_bhfdr(a_k, total, t_left, plan)
+        log(f'  pyBHFDR gate: counts {a_k.tolist()}, allowed '
+            f'{allowed.tolist()}')
     args_b = (raw, cband, eband, cand, allowed, plan, p_list, thr)
     b_k = cuda_scan.scan_pass_b(*args_b)
     b_t = twin.scan_pass_b(*args_b)[2]
@@ -140,43 +162,60 @@ def kernel_checks(bands, cfg, device, reps):
         ms=cuda_ms(lambda: cuda_scan.scan_pass_b(*args_b), reps),
         plain_ms=cuda_ms(lambda: twin.scan_pass_b(*args_b), reps))
 
-    # the histogram's inputs as the batched scorer forms them
-    pairs = list(zip(cfg.pw, cfg.ww))
-    BSV = torch.stack([b_k[p][0] for p, _ in pairs]
-                      + [b_k[p][2] for p, _ in pairs])
-    BEV = torch.stack([b_k[p][1] for p, _ in pairs]
-                      + [b_k[p][3] for p, _ in pairs])
-    wis = torch.tensor([w for _, w in pairs] * 2, dtype=torch.int32,
-                       device=raw.device)[:, None, None]
-    E, O, _, _, scored, _ = score.expected_observed(
-        raw, cband, ops['IR'], Bprod, BSV, BEV, wis, cand, bands.L)
-    cid, _, valid = score.lambda_chunks(E, scored)
-    o_cap = engine._bh_plan(bands.max_count)
-    S, C = score.chunk_rows(o_cap, cfg.siglevel), o_cap + 1
-    oc = torch.clamp(torch.floor(O), 0, C - 1).to(torch.int32).reshape(-1)
-    cid0 = torch.where(valid, torch.clamp(cid, 1, S - 1), 0) \
-        .reshape(E.shape[0], -1).contiguous()
-    h_k = cuda_hist.chunk_hist(oc, cid0, S, C)
-    h_t = cuda_hist.chunk_hist_torch(oc, cid0, S, C)
-    if not torch.equal(h_k, h_t):
-        raise AssertionError(f'histogram differs by up to {max_abs(h_k, h_t)}')
-    out['chunk_hist'] = dict(
-        max_abs_err=max_abs(h_k, h_t),
-        ms=cuda_ms(lambda: cuda_hist.chunk_hist(oc, cid0, S, C), reps),
-        plain_ms=cuda_ms(lambda: cuda_hist.chunk_hist_torch(oc, cid0, S, C),
-                         reps))
+    if caller == 'bhfdr':
+        # global BH is plain torch (no kernel): its fixed point on the
+        # donut captures, with one host sync per step
+        E, O, _, _, scored, _ = score.expected_observed(
+            raw, cband, ops['IR'], Bprod, b_k[cfg.pw][0], b_k[cfg.pw][1],
+            cfg.ww, cand, bands.L)
+        pval = torch.where(scored, score.poisson_sf(O, E), 1.0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        keep, m, iterations = score.global_bh_keep(pval, scored,
+                                                   cfg.siglevel)
+        n_keep = int(keep.sum())
+        log(f'  global BH: {iterations} fixed-point steps in '
+            f'{(time.perf_counter() - t0) * 1e3:.2f} ms, m = {int(m)}, '
+            f'keep superset {n_keep}')
+    else:
+        # the histogram's inputs as the batched scorer forms them
+        pairs = list(zip(cfg.pw, cfg.ww))
+        BSV = torch.stack([b_k[p][0] for p, _ in pairs]
+                          + [b_k[p][2] for p, _ in pairs])
+        BEV = torch.stack([b_k[p][1] for p, _ in pairs]
+                          + [b_k[p][3] for p, _ in pairs])
+        wis = torch.tensor([w for _, w in pairs] * 2, dtype=torch.int32,
+                           device=raw.device)[:, None, None]
+        E, O, _, _, scored, _ = score.expected_observed(
+            raw, cband, ops['IR'], Bprod, BSV, BEV, wis, cand, bands.L)
+        cid, _, valid = score.lambda_chunks(E, scored)
+        o_cap = engine._bh_plan(bands.max_count)
+        S, C = score.chunk_rows(o_cap, cfg.siglevel), o_cap + 1
+        oc = torch.clamp(torch.floor(O), 0, C - 1).to(torch.int32) \
+            .reshape(-1)
+        cid0 = torch.where(valid, torch.clamp(cid, 1, S - 1), 0) \
+            .reshape(E.shape[0], -1).contiguous()
+        h_k = cuda_hist.chunk_hist(oc, cid0, S, C)
+        h_t = cuda_hist.chunk_hist_torch(oc, cid0, S, C)
+        if not torch.equal(h_k, h_t):
+            raise AssertionError(
+                f'histogram differs by up to {max_abs(h_k, h_t)}')
+        out['chunk_hist'] = dict(
+            max_abs_err=max_abs(h_k, h_t),
+            ms=cuda_ms(lambda: cuda_hist.chunk_hist(oc, cid0, S, C), reps),
+            plain_ms=cuda_ms(lambda: cuda_hist.chunk_hist_torch(oc, cid0, S,
+                                                                C), reps))
     for name, r in out.items():
         log(f'  {name}: kernel == twin (max abs err {r["max_abs_err"]}); '
             f'kernel {r["ms"]:.3f} ms, twin {r["plain_ms"]:.3f} ms')
     return out
 
 
-def oracle_table(bands, w, bias_vec, cfg):
-    """The float64 oracle's table on the same chromosome (bench.py's
-    construction of its dense inputs)."""
+def dense_inputs(bands, w, bias_vec, d_lo):
+    """The float64 oracle's dense inputs for the chromosome (bench.py's
+    construction): raw and balanced upper bands, the distance-expected IR
+    of diagonals d >= ``d_lo`` and the bias vector."""
     import numpy as np
-    sys.path.insert(0, os.path.join(REPO, 'tests'))
-    from oracle import reference_impl as oracle_mod
     Lc, num_c = int(bands.L), int(bands.num)
     raw64 = np.asarray(bands.raw[:, :Lc], np.float64)
     w64 = np.asarray(w, np.float64)
@@ -186,7 +225,7 @@ def oracle_table(bands, w, bias_vec, cfg):
     idx = np.arange(Lc)
     for d in range(num_c):
         Md[idx[:Lc - d], idx[:Lc - d] + d] = raw64[d, :Lc - d]
-    for d in range(min(cfg.ww), num_c):
+    for d in range(d_lo, num_c):
         # sparse-fetch semantics: an unstored pixel is 0.0 in the balanced
         # diagonal and enters the IR mean; NaN marks stored pixels at
         # invalid-weight bins only
@@ -197,12 +236,36 @@ def oracle_table(bands, w, bias_vec, cfg):
         IR_d[d] = cdiag[~mask].mean()
         cMd[idx[:Lc - d], idx[:Lc - d] + d] = np.where(mask, 0.0, cdiag)
     B = np.where(bias_vec > 0, bias_vec, 0.0)
+    return dict(Md=Md, cMd=cMd, B=B, IR=IR_d, L=Lc, num=num_c)
+
+
+def oracle_table(dense, cfg, caller='hiccups'):
+    """The float64 oracle's table on the dense inputs of
+    :func:`dense_inputs`."""
+    sys.path.insert(0, os.path.join(REPO, 'tests'))
+    from oracle import reference_impl as oracle_mod
+    args = (dense['Md'], dense['cMd'], dense['B'], dense['B'], dense['IR'],
+            dense['L'], dense['num'])
+    if caller == 'bhfdr':
+        return oracle_mod.bhfdr(*args, pw=cfg.pw, ww=cfg.ww,
+                                sig=cfg.siglevel, maxww=cfg.maxww,
+                                maxapart=cfg.maxapart, res=RES,
+                                min_marginal_peaks=cfg.min_marginal_peaks,
+                                onlyanchor=cfg.only_anchors)
     return oracle_mod.hiccups(
-        Md, cMd, B, B, IR_d, Lc, num_c, pw=cfg.pw, ww=cfg.ww,
-        sig=cfg.siglevel, sumq=cfg.sumq, maxww=cfg.maxww,
-        maxapart=cfg.maxapart, res=RES,
+        *args, pw=cfg.pw, ww=cfg.ww, sig=cfg.siglevel, sumq=cfg.sumq,
+        maxww=cfg.maxww, maxapart=cfg.maxapart, res=RES,
         min_marginal_peaks=cfg.min_marginal_peaks,
         min_local_reads=cfg.min_local_reads, onlyanchor=cfg.only_anchors)
+
+
+def bhfdr_bedpe_lines(table):
+    """The sorted 13-column bedpe lines the pyBHFDR CLI writes for a
+    table."""
+    from hicpeaks_tpu_torch.hostio import write_bhfdr_bedpe
+    buf = io.StringIO()
+    write_bhfdr_bedpe(buf, '1', RES, table)
+    return sorted(buf.getvalue().splitlines())
 
 
 def compare_to_oracle(table, want):
@@ -227,6 +290,34 @@ def compare_to_oracle(table, want):
     return max_rel
 
 
+def run_counted(counters, call):
+    """``call()`` with every kernel's launch count set to 0 just before it;
+    returns (result, seconds, {kernel: launches})."""
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    out = call()
+    dt = time.perf_counter() - t0
+    return out, dt, {fn.__name__: fn.launches for fn in counters}
+
+
+def steady_walls(call, n_cand, tag):
+    """Two calls; logs both walls, the second (steady) one as candidate
+    pixels per second, and the peak device memory.  Returns the table."""
+    import torch
+    walls = []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        t0 = time.perf_counter()
+        table = call()
+        walls.append(time.perf_counter() - t0)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f'{tag} walls {walls[0]:.3f} s, {walls[1]:.3f} s; steady '
+        f'{walls[1]:.3f} s = {n_cand / walls[1]:.4g} candidate px/s; '
+        f'{len(table)} peaks; peak device memory {peak_gb:.2f} GiB')
+    return table
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -234,7 +325,7 @@ def main():
               'kernels on the CPU', file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
-    from hicpeaks_tpu.core.config import HiccupsConfig
+    from hicpeaks_tpu.core.config import BHFDRConfig, HiccupsConfig
     from hicpeaks_tpu_torch.core import engine
     from hicpeaks_tpu_torch.kernels import build
     from hicpeaks_tpu_torch.ops import cuda_hist, cuda_scan
@@ -259,28 +350,28 @@ def main():
     # --- 2: kernels against twins at the bench shape ---
     maxapart = 2_000_000
     num = maxapart // RES + MAXWW + 1
-    bands, w, bias_vec = synth_bands(8192, maxapart, seed=0, n_loops=200,
-                                     span=min(200, num - MAXWW - 2),
-                                     lane_pad=128)
+    bench_bands, w, bias_vec = synth_bands(
+        8192, maxapart, seed=0, n_loops=200, span=min(200, num - MAXWW - 2),
+        lane_pad=128)
+    bands = bench_bands
     cfg = HiccupsConfig(pw=PW, ww=WW, maxww=MAXWW, maxapart=maxapart)
     n_cand = bands.candidate_total(min(WW), maxapart // RES)
     log(f'[2] bench shape: bands {bands.raw.shape}, {n_cand} candidates')
     bench = kernel_checks(bands, cfg, device, reps=10)
 
     # --- 3: the main path at the bench shape, against the oracle ---
-    for fn in counters:
-        fn.launches = 0
-    t0 = time.perf_counter()
-    table = engine.hiccups_chrom(bands, cfg, device=device)
-    t_main = time.perf_counter() - t0
-    launches = {fn.__name__: fn.launches for fn in counters}
+    table, t_main, launches = run_counted(
+        counters, lambda: engine.hiccups_chrom(bands, cfg, device=device))
     log(f'[3] main path: hiccups_chrom in {t_main:.2f} s (first call), '
         f'{len(table)} peaks; kernel launches {launches}')
     idle = [n for n, c in launches.items() if c < 1]
     if idle:
         raise AssertionError(f'main path did not launch {idle}')
     t0 = time.perf_counter()
-    want = oracle_table(bands, w, bias_vec, cfg)
+    # pyHICCUPS's min(ww) and pyBHFDR's ww are both 5: one set of dense
+    # inputs serves phases 3 and 5
+    dense = dense_inputs(bands, w, bias_vec, min(WW))
+    want = oracle_table(dense, cfg)
     max_rel = compare_to_oracle(table, want)
     log(f'[3] oracle ({time.perf_counter() - t0:.1f} s): {len(want)} peaks; '
         f'loci identical, geometry identical, max rel stat diff {max_rel:.3g}')
@@ -295,28 +386,66 @@ def main():
     n_cand = bands.candidate_total(min(WW), maxapart // RES)
     log(f'[4] chr1 scale: bands {bands.raw.shape}, {n_cand} candidates '
         f'(synthesized in {time.perf_counter() - t0:.1f} s)')
-    walls = []
-    torch.cuda.reset_peak_memory_stats()
-    for _ in range(2):
-        t0 = time.perf_counter()
-        table = engine.hiccups_chrom(bands, cfg, device=device)
-        walls.append(time.perf_counter() - t0)
-    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-    log(f'[4] hiccups_chrom walls {walls[0]:.3f} s, {walls[1]:.3f} s; steady '
-        f'{walls[1]:.3f} s = {n_cand / walls[1]:.4g} candidate px/s; '
-        f'{len(table)} peaks; peak device memory {peak_gb:.2f} GiB')
+    steady_walls(lambda: engine.hiccups_chrom(bands, cfg, device=device),
+                 n_cand, '[4] hiccups_chrom')
     chr1 = kernel_checks(bands, cfg, device, reps=5)
+
+    # --- 5: pyBHFDR at the bench shape and the pyBHFDR CLI defaults ---
+    bands, maxapart = bench_bands, 2_000_000
+    bcfg = BHFDRConfig(pw=PW[0], ww=WW[0], maxww=MAXWW, maxapart=maxapart)
+    n_cand = bands.candidate_total(bcfg.ww, maxapart // RES)
+    log(f'[5] pyBHFDR at the bench shape: bands {bands.raw.shape}, {n_cand} '
+        'candidates')
+    bench_b = kernel_checks(bands, bcfg, device, reps=10, caller='bhfdr')
+    btable, t_b, b_launches = run_counted(
+        counters, lambda: engine.bhfdr_chrom(bands, bcfg, device=device))
+    log(f'[5] pyBHFDR path: bhfdr_chrom in {t_b:.2f} s (first call), '
+        f'{len(btable)} peaks; kernel launches {b_launches}')
+    idle = [n for n in ('scan_pass_a', 'scan_pass_b') if b_launches[n] < 1]
+    if idle:
+        raise AssertionError(f'pyBHFDR path did not launch {idle}')
+    t0 = time.perf_counter()
+    want = oracle_table(dense, bcfg, caller='bhfdr')
+    del dense
+    max_rel = compare_to_oracle(btable, want)
+    lines, want_lines = bhfdr_bedpe_lines(btable), bhfdr_bedpe_lines(want)
+    if lines != want_lines:
+        diff = sorted(set(lines) ^ set(want_lines))[:4]
+        raise AssertionError(f'bedpe lines differ from the oracle\'s: {diff}')
+    log(f'[5] oracle ({time.perf_counter() - t0:.1f} s): {len(want)} peaks; '
+        f'loci identical, geometry identical, max rel stat diff '
+        f'{max_rel:.3g}; {len(lines)} sorted bedpe lines identical')
+
+    # --- 6: pyBHFDR at chr1 scale and its default span ---
+    num = maxapart // RES + MAXWW + 1
+    t0 = time.perf_counter()
+    bands, _, _ = synth_bands(24900, maxapart, seed=42, n_loops=2000,
+                              span=num - MAXWW - 54, lane_pad=4096)
+    n_cand = bands.candidate_total(bcfg.ww, maxapart // RES)
+    log(f'[6] pyBHFDR at chr1 scale: bands {bands.raw.shape}, {n_cand} '
+        f'candidates (synthesized in {time.perf_counter() - t0:.1f} s)')
+    steady_walls(lambda: engine.bhfdr_chrom(bands, bcfg, device=device),
+                 n_cand, '[6] bhfdr_chrom')
+    chr1_b = kernel_checks(bands, bcfg, device, reps=5, caller='bhfdr')
 
     log(smi)
     records = []
     for name, source, replaces in KERNELS:
         b, c = bench[name], chr1[name]
-        records.append(dict(
+        rec = dict(
             name=name, route='cuda', source=source, replaces=replaces,
             launches=launches[name], max_abs_err=b['max_abs_err'],
             ms=b['ms'], plain_ms=b['plain_ms'],
             chr1_max_abs_err=c['max_abs_err'], chr1_ms=c['ms'],
-            chr1_plain_ms=c['plain_ms']))
+            chr1_plain_ms=c['plain_ms'], bhfdr_launches=b_launches[name])
+        if name in bench_b:
+            b, c = bench_b[name], chr1_b[name]
+            rec.update(
+                bhfdr_max_abs_err=b['max_abs_err'], bhfdr_ms=b['ms'],
+                bhfdr_plain_ms=b['plain_ms'],
+                bhfdr_chr1_max_abs_err=c['max_abs_err'],
+                bhfdr_chr1_ms=c['ms'], bhfdr_chr1_plain_ms=c['plain_ms'])
+        records.append(rec)
     log(json.dumps({'kernels': records}))
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -1,12 +1,12 @@
-"""Genome-wide pyHICCUPS API on one device (PyTorch).
+"""Genome-wide pyHICCUPS and pyBHFDR API on one device (PyTorch).
 
-Port of ``hicpeaks_tpu/api.py``'s ``_run``/``call_hiccups`` for the
-hiccups caller: chromosomes stream through one device with per-chromosome
-durable checkpoints (JSON peak tables; a rerun resumes from them) and a
-prefetch thread that builds the next chromosome's host bands while the
-device works on the current one.  The consumer does the host-to-device
-copy (``engine.bands_to_device``).  The ``jax.distributed`` branches and
-the profiler capture are not ported.
+Port of ``hicpeaks_tpu/api.py``'s ``_run``, ``call_hiccups`` and
+``call_bhfdr``: chromosomes stream through one device with per-chromosome
+durable checkpoints (JSON peak tables named ``<kind>.<chrom>.json``; a
+rerun resumes from them) and a prefetch thread that builds the next
+chromosome's host bands while the device works on the current one.  The
+consumer does the host-to-device copy (``engine.bands_to_device``).  The
+``jax.distributed`` branches and the profiler capture are not ported.
 """
 from __future__ import annotations
 
@@ -19,19 +19,18 @@ import time
 
 import numpy as np
 
-from hicpeaks_tpu.core.config import HiccupsConfig
+from hicpeaks_tpu.core.config import BHFDRConfig, HiccupsConfig
 from hicpeaks_tpu.ops.band import bands_from_cooler
 
 from .core import engine
 
 log = logging.getLogger(__name__)
 
-_KIND = 'hiccups'     # checkpoint file prefix, as the JAX API names them
 _MAX_RETRIES = 1      # per-chromosome retries after a runtime failure
 
 
-def _ckpt_path(checkpoint_dir, chrom):
-    return os.path.join(checkpoint_dir, f'{_KIND}.{chrom}.json')
+def _ckpt_path(checkpoint_dir, kind, chrom):
+    return os.path.join(checkpoint_dir, f'{kind}.{chrom}.json')
 
 
 def _save_ckpt(path, table):
@@ -69,10 +68,12 @@ def _selected_chroms(clr, chroms):
     return out
 
 
-def _run(cooler_uri, cfg, chroms, device, checkpoint_dir, dtype):
+def _run(kind, cooler_uri, cfg, chroms, device, checkpoint_dir, dtype):
     # h5py only where a cooler is read: the engine itself never needs it
     from hicpeaks_tpu.io.coolerlite import CoolerLite
 
+    device = engine.resolve_device(device)
+    caller = engine.hiccups_chrom if kind == 'hiccups' else engine.bhfdr_chrom
     clr = CoolerLite(cooler_uri)
     results = {}
     if checkpoint_dir:
@@ -81,7 +82,7 @@ def _run(cooler_uri, cfg, chroms, device, checkpoint_dir, dtype):
     for key in _selected_chroms(clr, chroms):
         label = key.lstrip('chr')
         if checkpoint_dir:
-            ck = _ckpt_path(checkpoint_dir, label)
+            ck = _ckpt_path(checkpoint_dir, kind, label)
             if os.path.exists(ck):
                 log.info('Chrom:%s, resuming from checkpoint', label)
                 results[label] = _load_ckpt(ck)
@@ -111,7 +112,7 @@ def _run(cooler_uri, cfg, chroms, device, checkpoint_dir, dtype):
             band_q.put((key, bands, time.perf_counter() - t0, None))
 
     producer = threading.Thread(target=_producer,
-                                name=f'{_KIND}-band-loader', daemon=True)
+                                name=f'{kind}-band-loader', daemon=True)
     producer.start()
     try:
         for _ in todo:
@@ -124,7 +125,7 @@ def _run(cooler_uri, cfg, chroms, device, checkpoint_dir, dtype):
             attempt = 0
             while True:
                 try:
-                    table = engine.hiccups_chrom(bands, cfg, device)
+                    table = caller(bands, cfg, device)
                     break
                 except NotImplementedError:
                     raise
@@ -142,7 +143,7 @@ def _run(cooler_uri, cfg, chroms, device, checkpoint_dir, dtype):
                      n_cand / max(dt, 1e-9), len(table))
             results[label] = table
             if checkpoint_dir:
-                _save_ckpt(_ckpt_path(checkpoint_dir, label), table)
+                _save_ckpt(_ckpt_path(checkpoint_dir, kind, label), table)
     finally:
         # unblock the producer if we leave early: it finishes at most the
         # in-flight build, then exits
@@ -163,5 +164,14 @@ def call_hiccups(cooler_uri, cfg: HiccupsConfig = None, chroms=('#', 'X'), *,
     The JAX API's ``shape_bucket``/``row_bucket``/``max_count_floor`` are
     not ported: they padded shapes so XLA executables could be shared, and
     eager PyTorch compiles nothing."""
-    return _run(cooler_uri, cfg or HiccupsConfig(), chroms, device,
+    return _run('hiccups', cooler_uri, cfg or HiccupsConfig(), chroms,
+                device, checkpoint_dir, dtype)
+
+
+def call_bhfdr(cooler_uri, cfg: BHFDRConfig = None, chroms=('#', 'X'), *,
+               device, checkpoint_dir=None, dtype=np.float32):
+    """-> {chrom_label: {(x_bp, y_bp): 7-tuple}} (see
+    ``engine.bhfdr_chrom``), every chromosome on ``device``; the arguments
+    are those of :func:`call_hiccups`."""
+    return _run('bhfdr', cooler_uri, cfg or BHFDRConfig(), chroms, device,
                 checkpoint_dir, dtype)

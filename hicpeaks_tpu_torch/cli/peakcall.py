@@ -1,0 +1,239 @@
+"""pyHICCUPS / pyBHFDR command-line tools on the PyTorch/CUDA engine.
+
+    python -m hicpeaks_tpu_torch.cli.peakcall pyHICCUPS -O peaks.bedpe \\
+        -p data.cool::10000 --pw 2 --ww 5
+    python -m hicpeaks_tpu_torch.cli.peakcall pyBHFDR -O peaks.bedpe \\
+        -p data.cool::10000 --device cpu
+
+The flags are those of ``hicpeaks_tpu.cli.peakcall`` (the reference CLIs'
+flags), built from its JAX-free helpers, plus ``--device`` (default
+``cuda``; without CUDA the run fails, it never falls back to the CPU).  The
+output files are the JAX CLIs' byte for byte.
+
+Flags of the JAX CLIs that this engine does not serve fail with
+NotImplementedError naming their ROADMAP.md item: ``--scan-backend
+jnp|pallas-interpret|validate`` and ``--bh-backend host`` (Queue 1 item
+10), ``--checkify`` (item 14) and ``--mesh-devices`` other than 0 (item 13).
+``--shape-bucket`` (it shared XLA executables) and ``--nproc`` are accepted
+and have no effect.
+
+Reading a cooler needs h5py; nothing else here does.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+
+from hicpeaks_tpu.cli.common import echo_arguments, setup_logging
+from hicpeaks_tpu.cli.peakcall import (_arm_watchdog, _common_data_args,
+                                       _engine_args)
+from hicpeaks_tpu.core.config import BHFDRConfig, HiccupsConfig
+
+from .. import __version__
+from ..api import call_bhfdr, call_hiccups
+from ..hostio import write_bhfdr_bedpe, write_hiccups_bedpe
+
+_ITEM = 'ROADMAP.md, Queue 1 item {}'
+
+
+def _parser(tool, log_file, description):
+    parser = argparse.ArgumentParser(
+        prog=tool, usage='%(prog)s <-O output> [options]',
+        description=description,
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter)
+    parser.add_argument('-v', '--version', action='version',
+                        version=' '.join(['%(prog)s', __version__]))
+    parser.add_argument('--logFile', default=log_file,
+                        help='Logging file name.')
+    _common_data_args(parser)
+    return parser
+
+
+def _add_engine_args(parser):
+    g = _engine_args(parser)
+    g.add_argument('--device', default='cuda',
+                   help='Torch device to run on ("cuda", "cuda:1", "cpu"). '
+                   'A CUDA device without CUDA is an error.')
+
+
+def _refuse_unserved(args):
+    """NotImplementedError for each flag value this engine does not
+    serve, naming the ROADMAP item that would port it."""
+    if args.scan_backend in ('jnp', 'pallas-interpret', 'validate'):
+        raise NotImplementedError(
+            f'--scan-backend {args.scan_backend}: this engine runs the CUDA '
+            'scan kernels only ("auto" or "pallas"); the plain scans and '
+            'the validating ladder belong to the non-fused path, '
+            + _ITEM.format(10))
+    if args.bh_backend == 'host':
+        raise NotImplementedError(
+            '--bh-backend host: the dense host BH scorer is part of the '
+            'non-fused path, ' + _ITEM.format(10))
+    if args.checkify:
+        raise NotImplementedError('--checkify: ' + _ITEM.format(14))
+    if args.mesh_devices:
+        raise NotImplementedError(
+            f'--mesh-devices {args.mesh_devices}: multi-GPU runs are '
+            + _ITEM.format(13))
+
+
+def _run(parser, args, logger, call, cfg, writer):
+    """The shared body of both tools once the config is built."""
+    # h5py only where a cooler is read
+    from hicpeaks_tpu.io.coolerlite import CoolerLite
+
+    for flag in ('shape_bucket', 'nproc'):
+        value = getattr(args, flag)
+        if value != parser.get_default(flag):
+            logger.info('--%s %s has no effect on this engine',
+                        flag.replace('_', '-'), value)
+    logger.info('Loading Hi-C data ...')
+    res = CoolerLite(args.path).binsize
+    logger.info('Calling Peaks ...')
+    results = call(args.path, cfg, chroms=args.chroms, device=args.device,
+                   checkpoint_dir=args.checkpoint_dir)
+    with open(args.output, 'w') as out:
+        for label, table in results.items():
+            writer(out, label, res, table)
+    logger.info('Done!')
+
+
+def hiccups_main(argv=None):
+    parser = _parser('pyHICCUPS', 'pyHICCUPS.log',
+                     'A GPU-based implementation of the HiCCUPS algorithm.')
+    g = parser.add_argument_group(title='Algorithm Parameters:')
+    g.add_argument('--pw', type=int, nargs='+', help='List of the peak widths.')
+    g.add_argument('--ww', type=int, nargs='+', help='List of the donut widths.')
+    g.add_argument('--maxww', type=int, default=10, help='Maximum donut width.')
+    g.add_argument('--siglevel', type=float, default=0.05,
+                   help='Significant Level.')
+    g.add_argument('--sumq', type=float, default=0.01,
+                   help='Sum-of-2-q-values threshold for singleton rescue.')
+    g.add_argument('--double-fold', type=float, default=1.75,
+                   help='Minimum fold enrichment against both backgrounds.')
+    g.add_argument('--single-fold', type=float, default=2,
+                   help='Minimum fold enrichment against either background.')
+    g.add_argument('--clr-weight-name', default='weight',
+                   help='Name of the weight column for normalization.')
+    g.add_argument('--use-raw', action='store_true',
+                   help='Sort peak pixels by raw signal during clustering.')
+    g.add_argument('--min-marginal-peaks', type=int, default=2,
+                   help='Minimum marginal number of peaks for anchors.')
+    g.add_argument('--min-local-reads', type=int, default=16,
+                   help='Minimum local raw-read sum for a valid loop.')
+    g.add_argument('--only-anchors', action='store_true',
+                   help='Either peak locus must be an anchor.')
+    g.add_argument('--maxapart', type=int, default=10000000,
+                   help='Maximum genomic distance between two loci.')
+    g.add_argument('--nproc', type=int, default=1,
+                   help='Accepted for compatibility; chromosomes run one '
+                   'after another on the device.')
+    g.add_argument('--mesh-devices', type=int, default=0,
+                   help='Accepted for compatibility; only 0 (one device) '
+                   'is served.')
+    g.add_argument('--checkpoint-dir', default=None,
+                   help='Persist per-chromosome peak tables here and resume '
+                   'finished chromosomes on rerun.')
+    _add_engine_args(parser)
+    args = parser.parse_args(argv if argv is not None else sys.argv[1:])
+    if args.output is None:
+        parser.print_help()
+        return 1
+    _refuse_unserved(args)
+
+    logger = setup_logging(args.logFile)
+    disarm = _arm_watchdog(args.watchdog)
+    try:
+        echo_arguments(logger, [
+            ('Output file', args.output), ('Cooler URI', args.path),
+            ('Chromosomes', args.chroms), ('Peak window width', args.pw),
+            ('Donut width', args.ww), ('Maximum donut width', args.maxww),
+            ('Significant Level', args.siglevel),
+            ('Sum of 2 q-values', args.sumq),
+            ('Double fold threshold', args.double_fold),
+            ('Single fold threshold', args.single_fold),
+            ('Weight column name', args.clr_weight_name),
+            ('Use Raw IF in clustering', args.use_raw),
+            ('Minimum marginal peaks', args.min_marginal_peaks),
+            ('Only remain anchors', args.only_anchors),
+            ('Maximum Genomic distance', args.maxapart),
+            ('Device', args.device)])
+        cfg = HiccupsConfig(
+            pw=tuple(args.pw), ww=tuple(args.ww), maxww=args.maxww,
+            siglevel=args.siglevel, sumq=args.sumq,
+            double_fold=args.double_fold, single_fold=args.single_fold,
+            maxapart=args.maxapart, use_raw=args.use_raw,
+            min_marginal_peaks=args.min_marginal_peaks,
+            min_local_reads=args.min_local_reads,
+            only_anchors=args.only_anchors,
+            clr_weight_name=args.clr_weight_name)
+        _run(parser, args, logger, call_hiccups, cfg, write_hiccups_bedpe)
+    finally:
+        disarm()
+    return 0
+
+
+def bhfdr_main(argv=None):
+    parser = _parser('pyBHFDR', 'pyBHFDR.log',
+                     'A GPU-based implementation of the BH-FDR algorithm.')
+    g = parser.add_argument_group(title='Algorithm Parameters:')
+    g.add_argument('--pw', type=int, default=2,
+                   help='Width of the peak region.')
+    g.add_argument('--ww', type=int, default=5, help='Donut width.')
+    g.add_argument('--maxww', type=int, default=10, help='Maximum donut width.')
+    g.add_argument('--siglevel', type=float, default=0.05,
+                   help='Significant Level.')
+    g.add_argument('--maxapart', type=int, default=2000000,
+                   help='Maximum genomic distance between two loci.')
+    g.add_argument('--clr-weight-name', default='weight',
+                   help='Name of the weight column for normalization.')
+    g.add_argument('--nproc', type=int, default=1,
+                   help='Accepted for compatibility.')
+    g.add_argument('--mesh-devices', type=int, default=0,
+                   help='Accepted for compatibility; only 0 (one device) '
+                   'is served.')
+    g.add_argument('--checkpoint-dir', default=None,
+                   help='Persist per-chromosome peak tables here and resume '
+                   'finished chromosomes on rerun.')
+    _add_engine_args(parser)
+    args = parser.parse_args(argv if argv is not None else sys.argv[1:])
+    if args.output is None:
+        parser.print_help()
+        return 1
+    _refuse_unserved(args)
+
+    logger = setup_logging(args.logFile, rotating=True)
+    disarm = _arm_watchdog(args.watchdog)
+    try:
+        echo_arguments(logger, [
+            ('Output file', args.output), ('Cooler URI', args.path),
+            ('Chromosomes', args.chroms), ('Peak window width', args.pw),
+            ('Donut width', args.ww), ('Maximum donut width', args.maxww),
+            ('Significant Level', args.siglevel),
+            ('Maximum Genomic distance', args.maxapart),
+            ('Weight column name', args.clr_weight_name),
+            ('Device', args.device)])
+        cfg = BHFDRConfig(pw=args.pw, ww=args.ww, maxww=args.maxww,
+                          siglevel=args.siglevel, maxapart=args.maxapart,
+                          clr_weight_name=args.clr_weight_name)
+        _run(parser, args, logger, call_bhfdr, cfg, write_bhfdr_bedpe)
+    finally:
+        disarm()
+    return 0
+
+
+TOOLS = {'pyHICCUPS': hiccups_main, 'pyBHFDR': bhfdr_main}
+
+
+def main(argv=None):
+    """``peakcall {pyHICCUPS|pyBHFDR} <tool arguments>``."""
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if not argv or argv[0] not in TOOLS:
+        print('usage: python -m hicpeaks_tpu_torch.cli.peakcall '
+              '{pyHICCUPS|pyBHFDR} <-O output> [options]', file=sys.stderr)
+        return 2
+    return TOOLS[argv[0]](argv[1:])
+
+
+if __name__ == '__main__':
+    sys.exit(main())

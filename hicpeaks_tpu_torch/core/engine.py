@@ -1,12 +1,18 @@
-"""Per-chromosome pyHICCUPS engine on one device (PyTorch).
+"""Per-chromosome pyHICCUPS and pyBHFDR engines on one device (PyTorch).
 
-Port of the main path of ``hicpeaks_tpu/core/engine.py``:
-``hiccups_chrom`` -> ``_hiccups_fused`` -> ``_fused_hiccups_device``.
-On the device: the sheets, pass A (CUDA kernel), the freeze gate, pass B
-(CUDA kernel) and the batched scorer with its (chunk, count) histogram
-(CUDA kernel) and keep-mask compaction.  On the host: the float64
-completion of the compacted pixels (:mod:`.hostcomplete`), the fold gates,
-the cross-pair merge and the clustering (``hicpeaks_tpu.core.clustering``).
+Port of the fused paths of ``hicpeaks_tpu/core/engine.py``:
+
+* ``hiccups_chrom`` -> ``_hiccups_fused`` -> ``_fused_hiccups_device``:
+  the sheets, pass A (CUDA kernel), the freeze gate, pass B (CUDA kernel)
+  and the batched scorer with its (chunk, count) histogram (CUDA kernel)
+  and keep-mask compaction;
+* ``bhfdr_chrom`` -> ``_bhfdr_fused`` -> ``_fused_bhfdr_device``: the
+  sheets, pass A, the pyBHFDR freeze gate (plain break), pass B and the
+  sort-free global-BH keep superset with its compaction.
+
+On the host: the float64 completion of the compacted pixels
+(:mod:`.hostcomplete`), the fold gates, the cross-pair merge and the
+clustering (``hicpeaks_tpu.core.clustering``).
 
 The non-fused fallback ladder is not ported (ROADMAP.md, Queue 1 item 10).
 Every case that would take it raises NotImplementedError naming that item:
@@ -20,19 +26,44 @@ import torch
 
 from hicpeaks_tpu.core import poolplan as host_poolplan
 from hicpeaks_tpu.core.clustering import local_clustering
-from hicpeaks_tpu.core.config import HiccupsConfig
+from hicpeaks_tpu.core.config import BHFDRConfig, HiccupsConfig
 from hicpeaks_tpu.ops.band import ChromBands
 
 from ..ops import cuda_scan
 from ..ops import score as score_ops
 from . import poolplan
-from .hostcomplete import FALLBACK_ITEM, _compact_to_host
+from .hostcomplete import FALLBACK_ITEM, _bhfdr_to_host, _compact_to_host
 
 _BH_SLACK = 0.01   # chunk_bh_keep superset inflation: covers the f32 qtab's
                    # gammainc error near q ~ sig, so the device keep mask is
                    # a superset of the float64 rejection set
 
 _MAX_O_CAP = 1 << 17   # the histogram-BH count cap (engine._bh_plan)
+
+_BHFDR_THR = 16   # pyBHFDR's fixed local-reads freeze threshold
+                  # (callers.py:505); BHFDRConfig has no such field
+
+
+def resolve_device(device):
+    """``device`` as a torch.device; a CUDA device on a machine without
+    CUDA raises RuntimeError rather than running anywhere else."""
+    device = torch.device(device)
+    if device.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError(f'device {device} requested but CUDA is not '
+                           'available')
+    return device
+
+
+def _refuse_unported(mesh, check, total):
+    """NotImplementedError for the cases that need the non-fused ladder."""
+    if mesh is not None or check:
+        raise NotImplementedError(
+            'mesh runs and checkify instrumentation take the non-fused '
+            f'path; {FALLBACK_ITEM}')
+    if 10 * total >= (1 << 31):
+        raise NotImplementedError(
+            f'{total} candidate pixels overflow the int32 freeze gate; the '
+            f'host freeze replay it needs is part of {FALLBACK_ITEM}')
 
 
 def bands_to_device(bands: ChromBands, device):
@@ -166,6 +197,42 @@ def _fused_hiccups_device(raw, w0, bias, IR, gap, sig, total, t_left,
         _bundle_slice(out, n, 2 * n)
 
 
+def _score_device_bhfdr_compact(raw, cband, IR, Bprod, bSV, bEV, cand,
+                                gap_drop, sig, wi, L):
+    """Global-BH scoring of the donut background: p-values, the sort-free
+    keep superset (``score_ops.global_bh_keep``) and its row-major
+    compaction.  Gap pixels stay in the superset: the gap filter comes
+    after BH, on the host.
+
+    Returns the 11-slot bundle (cnt, d, x, O, ICE, Fold, p, E, m, gap,
+    prod)."""
+    E, O, ICE, Fold, scored, prod = score_ops.expected_observed(
+        raw, cband, IR, Bprod, bSV, bEV, wi, cand, L)
+    pval = torch.where(scored, score_ops.poisson_sf(O, E), 1.0)
+    keep_sup, m, _ = score_ops.global_bh_keep(pval, scored, sig)
+    cnt, d_idx, x_idx = score_ops.compact_mask(keep_sup)
+    small = [_gather_flat_shared(a, d_idx, x_idx)
+             for a in (O, ICE, Fold, pval, E, gap_drop)]
+    return (cnt, d_idx, x_idx, *small[:5], m, small[5], prod)
+
+
+def _fused_bhfdr_device(raw, w0, bias, IR, gap, sig, total, t_left, plan,
+                        p_list, thr, wi, ww_min, L, d_lo, d_hi, gap_s):
+    """The per-chromosome pyBHFDR device pipeline: sheets, pass A, the
+    plain-break freeze gate, pass B and the global-BH scorer of the donut
+    background.  Returns (counts, allowed, bundle)."""
+    raw, cband, eband, Bprod, gap_drop, cand = score_ops.build_sheets(
+        raw, w0, bias, IR, gap, ww_min, L, d_lo, d_hi, gap_s)
+    counts = cuda_scan.scan_pass_a(raw, cand, plan, p_list, thr)
+    allowed = poolplan.device_allowed_bhfdr(counts, total, t_left, plan)
+    outs = cuda_scan.scan_pass_b(raw, cband, eband, cand, allowed, plan,
+                                 p_list, thr)
+    KS, KE, _, _ = outs[p_list[0]]
+    out = _score_device_bhfdr_compact(raw, cband, IR, Bprod, KS, KE, cand,
+                                      gap_drop, sig, wi, L)
+    return counts, allowed, out
+
+
 def _to_host(tree):
     """Tensors -> numpy arrays through nested tuples."""
     if isinstance(tree, tuple):
@@ -220,24 +287,14 @@ def hiccups_chrom(bands: ChromBands, cfg: HiccupsConfig, device,
     On a CUDA device the bands must be float32 (the kernels take float32
     sheets and raise otherwise); on the CPU float64 bands compute what the
     JAX engine computes under x64."""
-    device = torch.device(device)
-    if device.type == 'cuda' and not torch.cuda.is_available():
-        raise RuntimeError(f'device {device} requested but CUDA is not '
-                           'available')
-    if mesh is not None or check:
-        raise NotImplementedError(
-            'mesh runs and checkify instrumentation take the non-fused '
-            f'path; {FALLBACK_ITEM}')
+    device = resolve_device(device)
     res = bands.res
     pw, ww = tuple(cfg.pw), tuple(cfg.ww)
     plan = tuple(host_poolplan.hiccups_pool_plan(pw, ww, cfg.maxww))
     p_list = tuple(sorted(set(pw)))
     total = bands.candidate_total(min(ww), cfg.maxapart // res)
     pairs = list(zip(pw, ww))
-    if 10 * total >= (1 << 31):
-        raise NotImplementedError(
-            f'{total} candidate pixels overflow the int32 freeze gate; the '
-            f'host freeze replay it needs is part of {FALLBACK_ITEM}')
+    _refuse_unported(mesh, check, total)
     max_count = getattr(bands, 'max_count', None)
     if max_count is None:
         max_count = float(bands.raw.max())
@@ -301,3 +358,55 @@ def hiccups_chrom(bands: ChromBands, cfg: HiccupsConfig, device,
         final_table[key] = (cen[0] * res, cen[1] * res, radius * res) + \
             pixel_table[key][4:]
     return final_table
+
+
+def _bhfdr_fused(bands: ChromBands, cfg: BHFDRConfig, plan, total, device):
+    """One chromosome through the pyBHFDR device pipeline and one fetch of
+    the compacted bundle, completed to the host dict of its significant
+    pixels."""
+    ops = bands_to_device(bands, device)
+    counts, allowed_d, out = _fused_bhfdr_device(
+        ops['raw'], ops['w0'], ops['bias'], ops['IR'], ops['gap'],
+        cfg.siglevel, total, host_poolplan.left_threshold(total),
+        plan=plan, p_list=(cfg.pw,), thr=_BHFDR_THR, wi=int(cfg.ww),
+        ww_min=bands.ww_min, L=int(bands.L), d_lo=cfg.ww,
+        d_hi=cfg.maxapart // bands.res, gap_s=cfg.ww)
+    counts_h, allowed_h, fetched = _to_host((counts, allowed_d, out[:10]))
+    decision = host_poolplan.emulate_freeze_bhfdr(plan, counts_h, total)
+    if not np.array_equal(allowed_h, np.asarray(decision.allowed)):
+        raise AssertionError(
+            'device freeze emulation diverged from the host replay')
+    ctx = _exact_ctx(bands, plan, decision.allowed, _BHFDR_THR)
+    return _bhfdr_to_host(fetched, out[10], cfg.siglevel,
+                          exact=ctx and (ctx, cfg.pw, 'K'))
+
+
+def bhfdr_chrom(bands: ChromBands, cfg: BHFDRConfig, device, mesh=None,
+                check=False):
+    """Donut-only caller with one global BH (reference callers.py:364-590)
+    on one ``device``.  Returns {(x_bp, y_bp): (cen_x, cen_y, radius, O,
+    Fold, p, q)} in bp, the table of
+    ``hicpeaks_tpu.core.engine.bhfdr_chrom``; the dtype rules are those of
+    :func:`hiccups_chrom`."""
+    device = resolve_device(device)
+    res = bands.res
+    plan = tuple(host_poolplan.bhfdr_pool_plan(cfg.pw, cfg.ww, cfg.maxww))
+    total = bands.candidate_total(cfg.ww, cfg.maxapart // res)
+    _refuse_unported(mesh, check, total)
+    r = _bhfdr_fused(bands, cfg, plan, total, device)
+
+    # insertion order is output order: Donuts follows the row-major
+    # compaction, and the clustering and the bedpe writer iterate it
+    Donuts = {(int(x), int(y)): (float(o), float(f), float(p), float(q))
+              for x, y, o, f, p, q in zip(r['x'], r['y'], r['O'], r['Fold'],
+                                          r['p'], r['q'])}
+    pixel_list = local_clustering(Donuts, None, res,
+                                  min_count=cfg.min_marginal_peaks,
+                                  r=2 * res, onlysummit=cfg.only_anchors)
+    pixel_table = {}
+    for pixel, cen, radius in pixel_list:
+        donut = Donuts[pixel]
+        if donut[1] > 2:   # post-clustering fold gate, callers.py:587
+            pixel_table[(pixel[0] * res, pixel[1] * res)] = \
+                (cen[0] * res, cen[1] * res, radius * res) + donut
+    return pixel_table

@@ -5,15 +5,19 @@ significant pixels and ships them compacted, together with the exact
 integer (chunk, count) histogram.  This module finishes the reference's
 statistics in float64 on the host, as ``hicpeaks_tpu`` does:
 
-* ``host_chunk_qtab64`` / ``host_chunk_complete`` are copies of
-  ``hicpeaks_tpu/ops/score.py:906-958``, whose module imports JAX;
+* ``host_chunk_qtab64`` / ``host_chunk_complete`` and
+  ``host_bh_complete`` are copies of ``hicpeaks_tpu/ops/score.py:889-958``,
+  whose module imports JAX;
 * ``_compact_to_host`` is ``hicpeaks_tpu/core/engine.py:928-1036`` for the
-  histogram bundles of the main path (exact and suspect branches).
+  histogram bundles of the pyHICCUPS path (exact and suspect branches);
+* ``_bhfdr_to_host`` is ``hicpeaks_tpu/core/engine.py:1124-1162`` for the
+  global-BH bundle of the pyBHFDR path.
 
-The exact branch recomputes each pixel's E in float64
-(``hicpeaks_tpu.ops.hostexact``), moves lambda-chunk edge suspects to
-their float64 chunk in the histogram, and audits the device's count
-thresholds against the corrected table.
+The exact branches recompute each pixel's E in float64
+(``hicpeaks_tpu.ops.hostexact``).  The histogram branch moves lambda-chunk
+edge suspects to their float64 chunk and audits the device's count
+thresholds against the corrected table; the global-BH branch ranks the
+superset's float64 p-values among themselves.
 """
 from __future__ import annotations
 
@@ -58,6 +62,57 @@ def host_chunk_complete(O_small, cid_small, hist):
     p[cs == 0] = 1.0
     q[cs == 0] = 1.0
     return p, q
+
+
+def host_bh_complete(p_small, ranks, m, sig):
+    """Exact float64 global-BH q-values of the compacted superset (p,
+    global rank, m): tied p share the tie group's max rank, and the
+    ascending-p suffix-min over the superset equals the full suffix-min for
+    every pixel whose true q <= sig."""
+    p = np.asarray(p_small, np.float64)
+    r = np.asarray(ranks, np.float64)
+    raw = np.minimum(p * float(m) / np.maximum(r, 1.0), 1.0)
+    order = np.argsort(p, kind='stable')
+    q_sorted = np.minimum.accumulate(raw[order][::-1])[::-1]
+    q = np.empty_like(q_sorted)
+    q[order] = q_sorted
+    return q
+
+
+def _bhfdr_to_host(fetched, prod, sig, exact=None):
+    """The pyBHFDR bundle -> host dict of its significant pixels (x, y, O,
+    ICE, Fold, p, q, prod), with exact float64 p and q.
+
+    ``fetched`` = (cnt, d_idx, x_idx, O, ICE, Fold, p, E, m, gap) as numpy
+    arrays: the device's keep superset in row-major order, its f32 p (not
+    read: p is recomputed), E, the valid count m and the gap flags.
+    ``exact`` = (ExactCtx, p, kind) replays the ring sums in float64."""
+    cnt, d_idx, x_idx, Ov, ICEv, Foldv, _pv, Ev, m, gapv = fetched
+    n = int(cnt)
+    d_idx, x_idx = d_idx[:n], x_idx[:n]
+    # float64 p as the reference writes it, 1 - cdf (callers.py:541), tail
+    # saturation included
+    from scipy.stats import poisson as _poisson
+    Ovn, ICEn, Foldn = Ov[:n], ICEv[:n], Foldv[:n]
+    E64 = np.asarray(Ev[:n], np.float64)
+    if exact is not None:
+        from hicpeaks_tpu.ops import hostexact
+        ctx, p_set, kind = exact
+        Ovn, E64, Foldn, ICEn = hostexact.exact_stats(
+            ctx, d_idx, x_idx, p_set, kind)
+    p64 = 1.0 - _poisson.cdf(np.floor(np.asarray(Ovn, np.float64)), E64)
+    # every pixel with p64 <= tau is in the superset, and so is every pixel
+    # whose p64 is below it: the rank #{j: p64_j <= p64_i} of any pixel
+    # that can be kept counts superset members only
+    p_sorted = np.sort(p64, kind='stable')
+    ranks64 = np.searchsorted(p_sorted, p64, side='right')
+    q = host_bh_complete(p64, ranks64, m, sig)
+    # the gap filter comes after BH (callers.py:556-577): gap pixels took
+    # part in the ranks and the suffix-min, and leave only here
+    fin = (q <= sig) & ~np.asarray(gapv[:n], bool)
+    return dict(x=x_idx[fin], y=x_idx[fin] + d_idx[fin], O=Ovn[fin],
+                ICE=ICEn[fin], Fold=Foldn[fin], p=p64[fin], q=q[fin],
+                prod=prod)
 
 
 def _compact_to_host(fetched, prod, sig, exact=None, sus=None):

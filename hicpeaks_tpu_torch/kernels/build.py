@@ -1,8 +1,9 @@
 """Build and load the package's CUDA kernels.
 
 The sources under ``hicpeaks_tpu_torch/csrc/`` are compiled by ``nvcc``
-for Hopper (``sm_90a``) into ONE shared library with a plain C interface,
-loaded with ``ctypes``.  The build happens at first use, from the
+for Hopper (``sm_90a``), one ``nvcc`` per source, all started together,
+and linked into ONE shared library with a plain C interface, loaded with
+``ctypes``.  The build happens at first use, from the
 repository's sources only, into ``build/kernels/`` at the repository root;
 the library's file name carries a hash of the sources and flags, so an
 edit rebuilds it.  A failed build raises: nothing falls back to the plain
@@ -27,7 +28,7 @@ CSRC_DIR = os.path.join(_PKG_DIR, 'csrc')
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), 'build', 'kernels')
 
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-O3',
-              '--fmad=false', '-std=c++17', '-shared', '-Xcompiler', '-fPIC',
+              '--fmad=false', '-std=c++17', '-Xcompiler', '-fPIC',
               '-Xptxas', '-v')
 
 _vp = ctypes.c_void_p
@@ -97,16 +98,35 @@ def build():
         return path, '', 0.0
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f'{path}.tmp.{os.getpid()}'
-    cmd = [_nvcc(), *NVCC_FLAGS, '-o', tmp,
-           *[s for s in _sources() if s.endswith('.cu')]]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    dt = time.perf_counter() - t0
+    jobs = []
+    for src in (s for s in _sources() if s.endswith('.cu')):
+        obj = f'{tmp}.{os.path.basename(src)}.o'
+        cmd = [nvcc, *NVCC_FLAGS, '-c', src, '-o', obj]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    # every compiler ends before anything is raised
+    outputs = [proc.communicate()[0] for _, _, proc in jobs]
+    objs = [obj for _, obj, _ in jobs]
+    try:
+        for (cmd, _, proc), out in zip(jobs, outputs):
+            if proc.returncode != 0:
+                raise RuntimeError(f'nvcc failed (rc {proc.returncode}):\n'
+                                   f'{" ".join(cmd)}\n{out}')
+        cmd = [nvcc, '-shared', '-o', tmp, *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     if proc.returncode != 0:
-        raise RuntimeError(f'nvcc failed (rc {proc.returncode}):\n'
+        raise RuntimeError(f'nvcc link failed (rc {proc.returncode}):\n'
                            f'{" ".join(cmd)}\n{proc.stdout}{proc.stderr}')
+    dt = time.perf_counter() - t0
     os.replace(tmp, path)
-    return path, proc.stdout + proc.stderr, dt
+    return path, ''.join(outputs) + proc.stdout + proc.stderr, dt
 
 
 _LOCK = threading.Lock()

@@ -1,10 +1,11 @@
-"""Sheets and the batched lambda-chunk scorer in PyTorch.
+"""Sheets, the batched lambda-chunk scorer and global BH in PyTorch.
 
-Port of the parts of ``hicpeaks_tpu/ops/score.py`` that the pyHICCUPS main
-path runs: the sheet derivation (``_build_sheets_jit`` for a float raw
-slab), the gap filter, expected values, lambda chunks and their edge
-suspects, the (chunk, count) histogram BH keep mask, its q table, and the
-keep-mask compaction.  Dtypes follow JAX's: the raw slab becomes float32,
+Port of the parts of ``hicpeaks_tpu/ops/score.py`` that the pyHICCUPS and
+pyBHFDR paths run: the sheet derivation (``_build_sheets_jit`` for a float
+raw slab), the gap filter, expected values, lambda chunks and their edge
+suspects, the (chunk, count) histogram BH keep mask, its q table, the
+sort-free global BH keep superset, and the keep-mask compaction.  Dtypes
+follow JAX's: the raw slab becomes float32,
 every other sheet keeps its vector's dtype, so float64 bands compute what
 the JAX package computes under its x64 flag.
 
@@ -212,6 +213,43 @@ def chunk_bh_keep_batched(O, cid, valid, sig, B, n_chunks=128, o_cap=32768,
     return keep, qtab, hist, thr.to(torch.int32).reshape(B, S)
 
 
+def global_bh_keep(pval, valid, sig):
+    """Sort-free keep SUPERSET for global (pyBHFDR) BH: the fixed point of
+    ``t <- sig * #{p <= t} / m``, started at ``t = sig`` and inflated by
+    1e-4 relative at every step, so the mask holds every pixel of the exact
+    rejection set however the threshold rounds (see
+    ``hicpeaks_tpu.ops.score.global_bh_keep``).  The host recomputes the
+    kept pixels' q in float64 (``core.hostcomplete._bhfdr_to_host``).
+
+    ``sig`` passes through float32 first, as the JAX engine hands it over
+    (``jnp.float32(cfg.siglevel)``), and every threshold is computed in
+    ``pval.dtype`` in JAX's order ``sig * k / m * 1.0001``, so the mask is
+    bit-equal to JAX's on the same p-values.  Each loop test is a host
+    sync; the loop ends when the count stops changing.
+
+    Returns (keep, m, iterations) with m the valid count in ``pval.dtype``
+    and ``iterations`` the number of fixed-point steps."""
+    dt, dev = pval.dtype, pval.device
+    infl = torch.tensor(1.0001, dtype=dt, device=dev)
+    sigf = torch.tensor(sig, dtype=torch.float32).to(dt).to(dev)
+    m = valid.sum().to(dt)
+    msafe = torch.clamp(m, min=1.0)
+
+    def count(t):
+        return (valid & (pval <= t)).sum().to(dt)
+
+    k = count(sigf * infl)
+    iterations = 0
+    while True:
+        k_next = count(sigf * k / msafe * infl)
+        iterations += 1
+        if bool(k_next == k):
+            break
+        k = k_next
+    keep = valid & (pval <= sigf * k / msafe * infl)
+    return keep, m, iterations
+
+
 def compact_mask_batched(keep):
     """Row-major (d, x) indices of each background's True cells.
 
@@ -229,3 +267,10 @@ def compact_mask_batched(keep):
         - start.to(torch.int64)[nz[:, 0]]
     pos[nz[:, 0], slot] = nz[:, 1]
     return cnt, (pos // C).to(torch.int32), (pos % C).to(torch.int32)
+
+
+def compact_mask(keep):
+    """Row-major (d, x) indices of the True cells of one [R, C] mask:
+    (count int32, d_idx [count], x_idx [count]), with no cap."""
+    cnt, d_idx, x_idx = compact_mask_batched(keep[None])
+    return cnt[0], d_idx[0], x_idx[0]

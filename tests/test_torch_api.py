@@ -1,18 +1,19 @@
-"""The port's genome API (hicpeaks_tpu_torch/api.py) against the JAX API,
-and its per-chromosome checkpoints and resume."""
+"""The port's genome API (hicpeaks_tpu_torch/api.py) against the JAX API
+for both callers, and its per-chromosome checkpoints and resume."""
 import os
 
 import numpy as np
 import pytest
 
 from hicpeaks_tpu import api as japi
-from hicpeaks_tpu.core.config import HiccupsConfig
+from hicpeaks_tpu.core.config import BHFDRConfig, HiccupsConfig
 from hicpeaks_tpu.io.coolerlite import CoolerLite, binnify, create_cooler_file
 from hicpeaks_tpu.io.synth import synthesize_chrom
 from hicpeaks_tpu_torch import api as tapi
 from hicpeaks_tpu_torch.core import engine as tengine
 
 CFG = HiccupsConfig(pw=(1,), ww=(3,), maxww=8, maxapart=1500000)
+BCFG = BHFDRConfig(pw=1, ww=3, maxww=8, maxapart=1500000)
 
 
 @pytest.fixture(scope='module')
@@ -50,6 +51,38 @@ def test_call_hiccups_matches_jax_api(uri, dtype):
             assert tuple(got[chrom][k][:3]) == tuple(v[:3])
             np.testing.assert_allclose(got[chrom][k][3:], v[3:], rtol=1e-12,
                                        atol=1e-300)
+
+
+@pytest.mark.parametrize('dtype', [np.float64, np.float32])
+def test_call_bhfdr_matches_jax_api(uri, dtype):
+    want = japi.call_bhfdr(uri, BCFG, dtype=dtype)
+    got = tapi.call_bhfdr(uri, BCFG, device='cpu', dtype=dtype)
+    assert set(got) == set(want) == {'1', '2'}
+    assert sum(len(t) for t in want.values()) > 0
+    for chrom in want:
+        assert list(got[chrom]) == list(want[chrom])
+        for k, v in want[chrom].items():
+            assert tuple(got[chrom][k][:3]) == tuple(v[:3])
+            np.testing.assert_allclose(got[chrom][k][3:], v[3:], rtol=1e-12,
+                                       atol=1e-300)
+
+
+def test_bhfdr_checkpoint_resume(uri, tmp_path, monkeypatch):
+    """pyBHFDR checkpoints carry their own prefix: a resumed bhfdr run reads
+    them, and a hiccups run in the same directory does not."""
+    ck = str(tmp_path / 'ckpt')
+    first = tapi.call_bhfdr(uri, BCFG, device='cpu', checkpoint_dir=ck)
+    assert sorted(os.listdir(ck)) == ['bhfdr.1.json', 'bhfdr.2.json']
+
+    def no_engine(*a, **k):
+        raise AssertionError('resumed run recomputed a chromosome')
+
+    monkeypatch.setattr(tengine, 'bhfdr_chrom', no_engine)
+    assert tapi.call_bhfdr(uri, BCFG, device='cpu', checkpoint_dir=ck) \
+        == first
+    tapi.call_hiccups(uri, CFG, device='cpu', checkpoint_dir=ck,
+                      chroms=('2',))
+    assert os.path.exists(os.path.join(ck, 'hiccups.2.json'))
 
 
 def test_checkpoint_resume(uri, tmp_path, monkeypatch):

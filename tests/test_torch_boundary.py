@@ -1,6 +1,6 @@
-"""The port's boundary: hicpeaks_tpu_torch never imports JAX (nor h5py on
-the engine path), and a CUDA request on a machine without CUDA raises
-instead of running on the CPU.
+"""The port's boundary: hicpeaks_tpu_torch (engines, API, CLI) never
+imports JAX (nor h5py on the engine path), and a CUDA request on a machine
+without CUDA raises instead of running on the CPU.
 
 The import check runs in a subprocess, because this test session has
 imported JAX already (tests/conftest.py)."""
@@ -19,10 +19,12 @@ _PROBE = textwrap.dedent('''
     import sys
     import numpy as np
     import hicpeaks_tpu_torch
-    from hicpeaks_tpu.core.config import HiccupsConfig
+    import hicpeaks_tpu_torch.api
+    import hicpeaks_tpu_torch.cli.peakcall
+    from hicpeaks_tpu.core.config import BHFDRConfig, HiccupsConfig
     from hicpeaks_tpu.ops.band import build_bands
-    from hicpeaks_tpu_torch.core.engine import hiccups_chrom
-    from hicpeaks_tpu_torch.synth import synthesize_chrom
+    from hicpeaks_tpu_torch.core.engine import bhfdr_chrom, hiccups_chrom
+    from hicpeaks_tpu_torch.hostio import synthesize_chrom, write_bhfdr_bedpe
 
     res, L, maxapart, maxww = 10000, 600, 300000, 10
     num = maxapart // res + maxww + 1
@@ -34,7 +36,10 @@ _PROBE = textwrap.dedent('''
     bands = build_bands(b1, b2, ct, w, L, num, 5, res)
     table = hiccups_chrom(bands, HiccupsConfig(maxapart=maxapart),
                           device='cpu')
-    print(len(table), 'jax' in sys.modules, 'h5py' in sys.modules)
+    btable = bhfdr_chrom(bands, BHFDRConfig(maxapart=maxapart), device='cpu')
+    write_bhfdr_bedpe(sys.stderr, '1', res, btable)
+    print(len(table), len(btable), 'jax' in sys.modules,
+          'h5py' in sys.modules)
 ''')
 
 
@@ -43,17 +48,17 @@ def test_port_never_imports_jax_or_h5py():
     proc = subprocess.run([sys.executable, '-c', _PROBE], env=env, cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    n_peaks, has_jax, has_h5py = proc.stdout.split()
-    assert int(n_peaks) > 0
+    n_peaks, n_bhfdr, has_jax, has_h5py = proc.stdout.split()
+    assert int(n_peaks) > 0 and int(n_bhfdr) > 0
     assert (has_jax, has_h5py) == ('False', 'False')
 
 
 def test_cuda_request_without_cuda_raises():
     if torch.cuda.is_available():
         pytest.skip('this machine has CUDA; the refusal path needs none')
-    from hicpeaks_tpu.core.config import HiccupsConfig
+    from hicpeaks_tpu.core.config import BHFDRConfig, HiccupsConfig
     from hicpeaks_tpu.ops.band import build_bands
-    from hicpeaks_tpu_torch.core.engine import hiccups_chrom
+    from hicpeaks_tpu_torch.core.engine import bhfdr_chrom, hiccups_chrom
     from hicpeaks_tpu_torch.ops import cuda_hist, cuda_scan
 
     rng = np.random.default_rng(0)
@@ -63,6 +68,8 @@ def test_cuda_request_without_cuda_raises():
     bands = build_bands(b1, b2, np.ones(3000), np.ones(L), L, num, 5, 10000)
     with pytest.raises(RuntimeError, match='CUDA'):
         hiccups_chrom(bands, HiccupsConfig(maxapart=300000), device='cuda')
+    with pytest.raises(RuntimeError, match='CUDA'):
+        bhfdr_chrom(bands, BHFDRConfig(maxapart=300000), device='cuda')
     # the kernel wrappers refuse tensors they cannot launch on rather than
     # running the twin (a meta tensor stands in for a foreign device)
     raw = torch.empty((8, 16), device='meta')

@@ -1,0 +1,162 @@
+"""The port's command-line tools (hicpeaks_tpu_torch/cli/peakcall.py)
+against the JAX package's, on one synthetic cooler with weights and the
+argv of test_cli_e2e.py: the same flags, byte-identical bedpe files, and a
+non-zero exit naming the ROADMAP item for each flag the port refuses."""
+import argparse
+import logging
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from hicpeaks_tpu.cli import peakcall as jcli
+from hicpeaks_tpu.io.synth import synthetic_cooler
+from hicpeaks_tpu_torch.cli import peakcall as tcli
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ARGV = {'pyBHFDR': ['--pw', '1', '--ww', '3'],
+        'pyHICCUPS': ['--pw', '1', '--ww', '3', '--maxww', '8',
+                      '--maxapart', '2000000']}
+JAX_MAIN = {'pyBHFDR': jcli.bhfdr_main, 'pyHICCUPS': jcli.hiccups_main}
+
+
+@pytest.fixture(scope='module', autouse=True)
+def _root_logger():
+    """The tools reconfigure the root logger (file and console handlers,
+    as the reference CLIs do); put it back when the module is done."""
+    root = logging.getLogger()
+    handlers, level = list(root.handlers), root.level
+    yield
+    for h in list(root.handlers):
+        root.removeHandler(h)
+        if h not in handlers:
+            h.close()
+    for h in handlers:
+        root.addHandler(h)
+    root.setLevel(level)
+
+
+@pytest.fixture(scope='module')
+def uri(tmp_path_factory):
+    path = tmp_path_factory.mktemp('cli') / 'cli.cool'
+    u, _ = synthetic_cooler(str(path), n_bins=300, res=25000, seed=5,
+                            n_loops=20, depth=80.0)
+    return u
+
+
+@pytest.fixture(scope='module')
+def jax_bedpe(uri, tmp_path_factory):
+    """Each JAX tool's bedpe bytes on the cooler (compilation cache off, so
+    the run writes nothing outside its directory)."""
+    root = tmp_path_factory.mktemp('jax_cli')
+    old = os.environ.get('HICPEAKS_NO_COMPILE_CACHE')
+    os.environ['HICPEAKS_NO_COMPILE_CACHE'] = '1'
+    try:
+        out = {}
+        for tool, main in JAX_MAIN.items():
+            bedpe = root / f'{tool}.bedpe'
+            assert main(['-O', str(bedpe), '-p', uri, *ARGV[tool],
+                         '--logFile', str(root / f'{tool}.log')]) == 0
+            out[tool] = bedpe.read_bytes()
+            assert len(out[tool].splitlines()) > 0
+    finally:
+        if old is None:
+            del os.environ['HICPEAKS_NO_COMPILE_CACHE']
+        else:
+            os.environ['HICPEAKS_NO_COMPILE_CACHE'] = old
+    return out
+
+
+def _port(tool, uri, tmp_path, *extra):
+    bedpe = tmp_path / 'port.bedpe'
+    rc = tcli.main([tool, '-O', str(bedpe), '-p', uri, *ARGV[tool],
+                    '--device', 'cpu', '--logFile', str(tmp_path / 'p.log'),
+                    *extra])
+    return rc, bedpe
+
+
+@pytest.mark.parametrize('tool', list(ARGV))
+def test_bedpe_byte_identical_to_jax(uri, jax_bedpe, tool, tmp_path):
+    rc, bedpe = _port(tool, uri, tmp_path)
+    assert rc == 0
+    assert bedpe.read_bytes() == jax_bedpe[tool]
+
+
+@pytest.mark.parametrize('tool', list(ARGV))
+def test_flags_without_effect(uri, jax_bedpe, tool, tmp_path):
+    """--shape-bucket and --nproc are accepted and logged as without
+    effect; the served engine flags leave the output unchanged."""
+    rc, bedpe = _port(tool, uri, tmp_path, '--shape-bucket', '512',
+                      '--nproc', '3', '--scan-backend', 'pallas',
+                      '--bh-backend', 'device')
+    assert rc == 0
+    assert bedpe.read_bytes() == jax_bedpe[tool]
+    text = (tmp_path / 'p.log').read_text()
+    assert '--shape-bucket 512 has no effect' in text
+    assert '--nproc 3 has no effect' in text
+
+
+def _options(main, monkeypatch):
+    """{option string: (default, type, nargs, choices)} of a tool's parser,
+    captured as it parses."""
+    seen = {}
+
+    def capture(self, *a, **k):
+        seen['parser'] = self
+        raise SystemExit(0)
+
+    monkeypatch.setattr(argparse.ArgumentParser, 'parse_args', capture)
+    with pytest.raises(SystemExit):
+        main([])
+    monkeypatch.undo()
+    return {s: (a.default, a.type, a.nargs, a.choices)
+            for a in seen['parser']._actions for s in a.option_strings}
+
+
+@pytest.mark.parametrize('tool', list(ARGV))
+def test_flag_surface_is_the_jax_clis(tool, monkeypatch):
+    want = _options(JAX_MAIN[tool], monkeypatch)
+    got = _options(tcli.TOOLS[tool], monkeypatch)
+    assert got.pop('--device') == ('cuda', None, None, None)
+    assert got == want
+
+
+@pytest.mark.parametrize('tool', list(ARGV))
+@pytest.mark.parametrize('flags,item', [
+    (['--scan-backend', 'jnp'], 'item 10'),
+    (['--scan-backend', 'pallas-interpret'], 'item 10'),
+    (['--scan-backend', 'validate'], 'item 10'),
+    (['--bh-backend', 'host'], 'item 10'),
+    (['--checkify'], 'item 14'),
+    (['--mesh-devices', '2'], 'item 13')])
+def test_refused_flags_name_their_item(uri, tool, flags, item, tmp_path):
+    with pytest.raises(NotImplementedError, match=item):
+        _port(tool, uri, tmp_path, *flags)
+    assert not (tmp_path / 'port.bedpe').exists()
+
+
+def _run_module(args):
+    env = dict(os.environ, PYTHONPATH=REPO)
+    return subprocess.run(
+        [sys.executable, '-m', 'hicpeaks_tpu_torch.cli.peakcall', *args],
+        env=env, cwd=REPO, capture_output=True, text=True, timeout=300)
+
+
+def test_module_exits_nonzero_on_a_refused_flag(uri, tmp_path):
+    proc = _run_module(['pyBHFDR', '-O', str(tmp_path / 'x.bedpe'), '-p',
+                        uri, '--device', 'cpu', '--checkify'])
+    assert proc.returncode != 0
+    assert 'NotImplementedError' in proc.stderr
+    assert 'item 14' in proc.stderr
+
+
+def test_cuda_device_without_cuda_exits_nonzero(uri, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip('this machine has CUDA; the refusal path needs none')
+    proc = _run_module(['pyBHFDR', '-O', str(tmp_path / 'x.bedpe'), '-p',
+                        uri, '--logFile', str(tmp_path / 'x.log')])
+    assert proc.returncode != 0
+    assert 'RuntimeError' in proc.stderr and 'CUDA' in proc.stderr
+    assert not (tmp_path / 'x.bedpe').exists()

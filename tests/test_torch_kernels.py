@@ -60,6 +60,31 @@ def test_scan_kernels_match_twin(device, num_p, Lp, L, pw, ww, maxww):
             assert torch.equal(got_b[p][t], want_b[p][t]), (p, t)
 
 
+@pytest.mark.parametrize('num_p,Lp,L', [(64, 256, 243), (17, 139, 131)])
+@pytest.mark.parametrize('pw,ww,maxww', [(2, 5, 10), (1, 3, 10)])
+def test_scan_kernels_match_twin_on_bhfdr_gate(device, num_p, Lp, L, pw, ww,
+                                               maxww):
+    """The pyBHFDR plan (one p, clean annuli) and its plain-break gate,
+    computed on the card from the kernel's own counts."""
+    from hicpeaks_tpu_torch.core.poolplan import device_allowed_bhfdr
+    raw, cband, eband, cand = _bands(num_p, Lp, L, num_p * Lp, device)
+    plan = tuple(poolplan.bhfdr_pool_plan(pw, ww, maxww))
+    got_a = cuda_scan.scan_pass_a(raw, cand, plan, (pw,), 16)
+    assert torch.equal(got_a, twin.scan_pass_a(raw, cand, plan, (pw,), 16))
+    total = int(cand.sum())
+    allowed = device_allowed_bhfdr(got_a, total,
+                                   poolplan.left_threshold(total), plan)
+    assert allowed.tolist() == poolplan.emulate_freeze_bhfdr(
+        plan, got_a.cpu().numpy(), total).allowed
+    got_b = cuda_scan.scan_pass_b(raw, cband, eband, cand, allowed, plan,
+                                  (pw,), 16)
+    want_b = twin.scan_pass_b(raw, cband, eband, cand, allowed, plan,
+                              (pw,), 16)[2]
+    torch.cuda.synchronize()
+    for t in range(4):
+        assert torch.equal(got_b[pw][t], want_b[pw][t]), t
+
+
 @pytest.mark.parametrize('n,S,C,B', [(5000, 40, 1025, 2), (70000, 128, 513, 1),
                                      (300, 16, 33, 3), (20000, 128, 4097, 2)])
 def test_hist_kernel_matches_twin(device, n, S, C, B):
@@ -80,7 +105,7 @@ def test_hiccups_chrom_on_card_matches_cpu(device, pw, ww):
     from hicpeaks_tpu.core.config import HiccupsConfig
     from hicpeaks_tpu.ops.band import build_bands
     from hicpeaks_tpu_torch.core.engine import hiccups_chrom
-    from hicpeaks_tpu_torch.synth import synthesize_chrom
+    from hicpeaks_tpu_torch.hostio import synthesize_chrom
     res, L, maxapart, maxww = 10000, 1500, 600000, 10
     num = maxapart // res + maxww + 1
     b1, b2, ct, _, bias = synthesize_chrom(n_bins=L, res=res, seed=1,
@@ -99,6 +124,40 @@ def test_hiccups_chrom_on_card_matches_cpu(device, pw, ww):
     got, want = table(device), table('cpu')
     assert cuda_scan.scan_pass_b.launches == launches + 1
     assert len(want) > 0 and set(got) == set(want)
+    for k, v in want.items():
+        assert tuple(got[k][:3]) == tuple(v[:3])
+        np.testing.assert_allclose(got[k][3:], v[3:], rtol=1e-12,
+                                   atol=1e-300)
+
+
+@pytest.mark.parametrize('pw,ww', [(2, 5), (1, 3)])
+def test_bhfdr_chrom_on_card_matches_cpu(device, pw, ww):
+    """The pyBHFDR path on the card (scan kernels, f32 gammainc of the
+    keep superset) gives the CPU run's table: the host recomputes every
+    emitted p and q in float64."""
+    from hicpeaks_tpu.core.config import BHFDRConfig
+    from hicpeaks_tpu.ops.band import build_bands
+    from hicpeaks_tpu_torch.core.engine import bhfdr_chrom
+    from hicpeaks_tpu_torch.hostio import synthesize_chrom
+    res, L, maxapart, maxww = 10000, 1500, 600000, 10
+    num = maxapart // res + maxww + 1
+    b1, b2, ct, _, bias = synthesize_chrom(n_bins=L, res=res, seed=2,
+                                           depth=40.0, n_loops=60,
+                                           decay=0.75,
+                                           max_loop_span_bins=num - 12)
+    w = np.full(L, np.nan)
+    w[bias > 0] = 1.0 / bias[bias > 0]
+    cfg = BHFDRConfig(pw=pw, ww=ww, maxww=maxww, maxapart=maxapart)
+
+    def table(dev):
+        bands = build_bands(b1, b2, ct, w, L, num, ww, res)
+        return bhfdr_chrom(bands, cfg, device=dev)
+
+    launches = (cuda_scan.scan_pass_a.launches, cuda_scan.scan_pass_b.launches)
+    got, want = table(device), table('cpu')
+    assert (cuda_scan.scan_pass_a.launches,
+            cuda_scan.scan_pass_b.launches) == tuple(n + 1 for n in launches)
+    assert len(want) > 0 and list(got) == list(want)
     for k, v in want.items():
         assert tuple(got[k][:3]) == tuple(v[:3])
         np.testing.assert_allclose(got[k][3:], v[3:], rtol=1e-12,
