@@ -11,26 +11,32 @@ without a CUDA card.  Phases:
 2. each CUDA kernel against its plain PyTorch twin at the bench shape
    (bench.py: L=8192 bins at 10 kb, 2 Mb span, pw=2, ww=5, maxww=10,
    seed 0): pass-A counts equal, pass-B captures bit-equal, histogram
-   equal; times by CUDA events (median of repeats);
+   equal; times by CUDA events (median of repeats), each beside its bound
+   (the least time for its bytes and operations at the H100's peaks) and,
+   for the histogram, beside one ``torch.bincount`` of the same inputs;
+   then the scan kernels again on the multi-pair plan pw=(1, 2),
+   ww=(3, 5), maxww=10, whose drift re-adds read kept rings;
 3. the main path, ``hiccups_chrom`` on the card, with every kernel's
    launch count, and its table against the float64 oracle
    (tests/oracle/reference_impl.py): identical loci and geometry, max
    relative stat difference < 1e-8;
 4. chr1 scale at the CLI default span (L=24,900 at 10 kb, 10 Mb): the
-   steady per-chromosome wall of the second of two runs, and the kernel
-   checks of phase 2 on that chromosome's sheets;
+   main path's kernel launches in its first call and the steady
+   per-chromosome wall of the second, and the kernel checks of phase 2
+   on that chromosome's sheets;
 5. pyBHFDR at the bench shape and the pyBHFDR CLI defaults (pw=2, ww=5,
    maxww=10, 2 Mb): the scan kernels against their twins on the pyBHFDR
    plan and gate, the global-BH iteration count, ``bhfdr_chrom`` on the
    card with its kernel launch counts, and its table against the float64
    oracle (identical loci and geometry, max relative stat difference
    < 1e-8, identical sorted 13-column bedpe lines);
-6. pyBHFDR at chr1 scale (L=24,900 at 10 kb, 2 Mb): the steady wall of the
-   second of two ``bhfdr_chrom`` calls, and the scan-kernel checks of
-   phase 5 on that chromosome's sheets.
+6. pyBHFDR at chr1 scale (L=24,900 at 10 kb, 2 Mb): the kernel launches
+   of the first ``bhfdr_chrom`` call and the steady wall of the second,
+   and the scan-kernel checks of phase 5 on that chromosome's sheets.
 
-The line before the last is one JSON object with a record per kernel; the
-last line is {"ok": true, "device": {...}}.
+The line before the last is one JSON object with a record per kernel (its
+main keys from phase 4, the others prefixed by phase); the last line is
+{"ok": true, "device": {...}}.
 """
 import io
 import json
@@ -42,6 +48,8 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 RES = 10000
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet, at the 700 W limit
+F32_OPS_PER_S = 67e12
 PW, WW, MAXWW = (2,), (5,), 10
 KERNELS = (
     ('scan_pass_a', 'hicpeaks_tpu_torch/csrc/scan_pass_a.cu',
@@ -61,8 +69,8 @@ def synth_bands(L, maxapart, seed, n_loops, span, lane_pad):
     """A synthetic chromosome's host bands, built in memory as bench.py and
     benchmarks/genome_scale.py build theirs."""
     import numpy as np
-    from hicpeaks_tpu.ops.band import build_bands
-    from hicpeaks_tpu_torch.hostio import synthesize_chrom
+    from hicpeaks_tpu_torch.io.synth import synthesize_chrom
+    from hicpeaks_tpu_torch.ops.band import build_bands
     num = maxapart // RES + MAXWW + 1
     b1, b2, ct, _, bias_vec = synthesize_chrom(
         n_bins=L, res=RES, seed=seed, depth=40.0, n_loops=n_loops,
@@ -92,6 +100,17 @@ def cuda_ms(fn, reps):
     return statistics.median(times)
 
 
+def bound_ms(bytes_, ops):
+    """The least time the card could take for ``bytes_`` moved once and
+    ``ops`` float32 operations: the larger of the two times at the H100
+    SXM's published peaks (3.35 TB/s HBM3, 67 TFLOP/s f32 outside the
+    tensor cores), and which one it is."""
+    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by='bytes' if t_bytes >= t_ops else 'operations',
+                bytes=int(bytes_), ops=int(ops))
+
+
 def max_abs(a, b):
     import torch
     if a.numel() == 0:
@@ -102,22 +121,20 @@ def max_abs(a, b):
 def kernel_checks(bands, cfg, device, reps, caller='hiccups'):
     """Each kernel of ``caller``'s path ('hiccups' or 'bhfdr') against its
     twin on the sheets, plan and freeze gate that path gives it.  Raises on
-    any disagreement; returns {name: {max_abs_err, ms, plain_ms}}."""
+    any disagreement; returns {name: {max_abs_err, ms, plain_ms,
+    library_ms, bound_ms, bound_by, bytes, ops}}."""
     import torch
-    from hicpeaks_tpu.core import poolplan as host_poolplan
     from hicpeaks_tpu_torch.core import engine, poolplan
     from hicpeaks_tpu_torch.ops import cuda_hist, cuda_scan, score
     from hicpeaks_tpu_torch.ops import scan as twin
 
     res = bands.res
     if caller == 'hiccups':
-        plan = tuple(host_poolplan.hiccups_pool_plan(cfg.pw, cfg.ww,
-                                                     cfg.maxww))
+        plan = tuple(poolplan.hiccups_pool_plan(cfg.pw, cfg.ww, cfg.maxww))
         p_list = tuple(sorted(set(cfg.pw)))
         thr, d_lo = cfg.min_local_reads, min(cfg.ww)
     else:
-        plan = tuple(host_poolplan.bhfdr_pool_plan(cfg.pw, cfg.ww,
-                                                   cfg.maxww))
+        plan = tuple(poolplan.bhfdr_pool_plan(cfg.pw, cfg.ww, cfg.maxww))
         p_list = (cfg.pw,)
         thr, d_lo = engine._BHFDR_THR, cfg.ww
     total = bands.candidate_total(d_lo, cfg.maxapart // res)
@@ -126,6 +143,10 @@ def kernel_checks(bands, cfg, device, reps, caller='hiccups'):
         ops['raw'], ops['w0'], ops['bias'], ops['IR'], ops['gap'],
         bands.ww_min, bands.L, d_lo, cfg.maxapart // res, d_lo)
     out = {}
+    positions, n_cand = raw.numel(), int(cand.sum())
+    maxw = cuda_scan.max_ring(plan)
+    reads_adds = sum(len(e.reads_rings) for e in plan)
+    bg_adds = sum(len(e.bg_rings) for e in plan)
 
     a_k = cuda_scan.scan_pass_a(raw, cand, plan, p_list, thr)
     a_t = twin.scan_pass_a(raw, cand, plan, p_list, thr)
@@ -137,9 +158,15 @@ def kernel_checks(bands, cfg, device, reps, caller='hiccups'):
         ms=cuda_ms(lambda: cuda_scan.scan_pass_a(raw, cand, plan, p_list,
                                                  thr), reps),
         plain_ms=cuda_ms(lambda: twin.scan_pass_a(raw, cand, plan, p_list,
-                                                  thr), reps))
+                                                  thr), reps),
+        library_ms=None,
+        # f32 raw and bool mask in, int32 counts out; per position and
+        # radius the Vn and Wq folds and the ring (3 adds), per candidate
+        # the plan's Reads adds
+        **bound_ms(bytes_=5 * positions + 4 * len(plan),
+                   ops=3 * maxw * positions + reads_adds * n_cand))
 
-    t_left = host_poolplan.left_threshold(total)
+    t_left = poolplan.left_threshold(total)
     if caller == 'hiccups':
         allowed = poolplan.device_allowed_hiccups(a_k, total, t_left, plan,
                                                   cfg.ww)
@@ -160,7 +187,15 @@ def kernel_checks(bands, cfg, device, reps, caller='hiccups'):
     out['scan_pass_b'] = dict(
         max_abs_err=err,
         ms=cuda_ms(lambda: cuda_scan.scan_pass_b(*args_b), reps),
-        plain_ms=cuda_ms(lambda: twin.scan_pass_b(*args_b), reps))
+        plain_ms=cuda_ms(lambda: twin.scan_pass_b(*args_b), reps),
+        library_ms=None,
+        # three f32 bands, the bool mask and gate in, 4 f32 planes per p
+        # out; per position and radius 10 adds for each of cband and eband
+        # (Vx, Wx, Vn, Wq, ringK, ringQ) and 3 for raw, per candidate the
+        # plan's background (4 sums) and Reads adds
+        **bound_ms(bytes_=(13 + 16 * len(p_list)) * positions + len(plan),
+                   ops=23 * maxw * positions
+                   + (4 * bg_adds + reads_adds) * n_cand))
 
     if caller == 'bhfdr':
         # global BH is plain torch (no kernel): its fixed point on the
@@ -200,14 +235,35 @@ def kernel_checks(bands, cfg, device, reps, caller='hiccups'):
         if not torch.equal(h_k, h_t):
             raise AssertionError(
                 f'histogram differs by up to {max_abs(h_k, h_t)}')
+        # the library yardstick: one torch.bincount over the flat
+        # (background, chunk, count) index of the same inputs (every id and
+        # count is in range after the clamps above); the port never calls it
+        B = cid0.shape[0]
+        flat = ((torch.arange(B, device=raw.device)[:, None] * S
+                 + cid0.long()) * C + oc.long()[None, :]).reshape(-1)
+        lib_h = torch.bincount(flat, minlength=B * S * C)
+        if not torch.equal(lib_h.reshape(B * S, C).to(torch.int32), h_k):
+            raise AssertionError('torch.bincount disagrees with the histogram')
+        del lib_h
         out['chunk_hist'] = dict(
             max_abs_err=max_abs(h_k, h_t),
             ms=cuda_ms(lambda: cuda_hist.chunk_hist(oc, cid0, S, C), reps),
             plain_ms=cuda_ms(lambda: cuda_hist.chunk_hist_torch(oc, cid0, S,
-                                                                C), reps))
+                                                                C), reps),
+            library_ms=cuda_ms(lambda: torch.bincount(flat,
+                                                      minlength=B * S * C),
+                               reps),
+            # int32 counts and ids in, the int32 table out; one integer
+            # increment per (background, pixel)
+            **bound_ms(bytes_=oc.numel() * 4 + cid0.numel() * 4
+                       + B * S * C * 4, ops=cid0.numel()))
     for name, r in out.items():
+        lib = '' if r['library_ms'] is None else \
+            f', library call {r["library_ms"]:.3f} ms'
         log(f'  {name}: kernel == twin (max abs err {r["max_abs_err"]}); '
-            f'kernel {r["ms"]:.3f} ms, twin {r["plain_ms"]:.3f} ms')
+            f'kernel {r["ms"]:.3f} ms, twin {r["plain_ms"]:.3f} ms{lib}; '
+            f'bound {r["bound_ms"]:.4f} ms ({r["bound_by"]}: {r["bytes"]} B, '
+            f'{r["ops"]} ops), {r["bound_ms"] / r["ms"]:.1%} of it')
     return out
 
 
@@ -262,7 +318,7 @@ def oracle_table(dense, cfg, caller='hiccups'):
 def bhfdr_bedpe_lines(table):
     """The sorted 13-column bedpe lines the pyBHFDR CLI writes for a
     table."""
-    from hicpeaks_tpu_torch.hostio import write_bhfdr_bedpe
+    from hicpeaks_tpu_torch.io.peakfile import write_bhfdr_bedpe
     buf = io.StringIO()
     write_bhfdr_bedpe(buf, '1', RES, table)
     return sorted(buf.getvalue().splitlines())
@@ -301,21 +357,22 @@ def run_counted(counters, call):
     return out, dt, {fn.__name__: fn.launches for fn in counters}
 
 
-def steady_walls(call, n_cand, tag):
-    """Two calls; logs both walls, the second (steady) one as candidate
-    pixels per second, and the peak device memory.  Returns the table."""
+def steady_walls(counters, call, n_cand, tag):
+    """Two calls, the first with the launch counts read around it; logs
+    both walls, the second (steady) one as candidate pixels per second,
+    and the peak device memory.  Returns the first call's launches."""
     import torch
-    walls = []
     torch.cuda.reset_peak_memory_stats()
-    for _ in range(2):
-        t0 = time.perf_counter()
-        table = call()
-        walls.append(time.perf_counter() - t0)
+    _, first, launches = run_counted(counters, call)
+    t0 = time.perf_counter()
+    table = call()
+    steady = time.perf_counter() - t0
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-    log(f'{tag} walls {walls[0]:.3f} s, {walls[1]:.3f} s; steady '
-        f'{walls[1]:.3f} s = {n_cand / walls[1]:.4g} candidate px/s; '
-        f'{len(table)} peaks; peak device memory {peak_gb:.2f} GiB')
-    return table
+    log(f'{tag} walls {first:.3f} s, {steady:.3f} s; steady '
+        f'{steady:.3f} s = {n_cand / steady:.4g} candidate px/s; '
+        f'{len(table)} peaks; peak device memory {peak_gb:.2f} GiB; kernel '
+        f'launches of the first call {launches}')
+    return launches
 
 
 def main():
@@ -325,8 +382,8 @@ def main():
               'kernels on the CPU', file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
-    from hicpeaks_tpu.core.config import BHFDRConfig, HiccupsConfig
     from hicpeaks_tpu_torch.core import engine
+    from hicpeaks_tpu_torch.core.config import BHFDRConfig, HiccupsConfig
     from hicpeaks_tpu_torch.kernels import build
     from hicpeaks_tpu_torch.ops import cuda_hist, cuda_scan
 
@@ -358,13 +415,19 @@ def main():
     n_cand = bands.candidate_total(min(WW), maxapart // RES)
     log(f'[2] bench shape: bands {bands.raw.shape}, {n_cand} candidates')
     bench = kernel_checks(bands, cfg, device, reps=10)
+    # the multi-pair plan, whose drift re-adds read kept rings
+    mcfg = HiccupsConfig(pw=(1, 2), ww=(3, 5), maxww=MAXWW,
+                         maxapart=maxapart)
+    log('[2] multi-pair plan pw=(1, 2), ww=(3, 5), maxww=10 at the bench '
+        'shape')
+    multi = kernel_checks(bands, mcfg, device, reps=3)
 
     # --- 3: the main path at the bench shape, against the oracle ---
-    table, t_main, launches = run_counted(
+    table, t_main, bench_launches = run_counted(
         counters, lambda: engine.hiccups_chrom(bands, cfg, device=device))
     log(f'[3] main path: hiccups_chrom in {t_main:.2f} s (first call), '
-        f'{len(table)} peaks; kernel launches {launches}')
-    idle = [n for n, c in launches.items() if c < 1]
+        f'{len(table)} peaks; kernel launches {bench_launches}')
+    idle = [n for n, c in bench_launches.items() if c < 1]
     if idle:
         raise AssertionError(f'main path did not launch {idle}')
     t0 = time.perf_counter()
@@ -386,9 +449,13 @@ def main():
     n_cand = bands.candidate_total(min(WW), maxapart // RES)
     log(f'[4] chr1 scale: bands {bands.raw.shape}, {n_cand} candidates '
         f'(synthesized in {time.perf_counter() - t0:.1f} s)')
-    steady_walls(lambda: engine.hiccups_chrom(bands, cfg, device=device),
-                 n_cand, '[4] hiccups_chrom')
-    chr1 = kernel_checks(bands, cfg, device, reps=5)
+    launches = steady_walls(
+        counters, lambda: engine.hiccups_chrom(bands, cfg, device=device),
+        n_cand, '[4] hiccups_chrom')
+    idle = [n for n, c in launches.items() if c < 1]
+    if idle:
+        raise AssertionError(f'main path did not launch {idle}')
+    chr1 = kernel_checks(bands, cfg, device, reps=10)
 
     # --- 5: pyBHFDR at the bench shape and the pyBHFDR CLI defaults ---
     bands, maxapart = bench_bands, 2_000_000
@@ -397,11 +464,12 @@ def main():
     log(f'[5] pyBHFDR at the bench shape: bands {bands.raw.shape}, {n_cand} '
         'candidates')
     bench_b = kernel_checks(bands, bcfg, device, reps=10, caller='bhfdr')
-    btable, t_b, b_launches = run_counted(
+    btable, t_b, bench_b_launches = run_counted(
         counters, lambda: engine.bhfdr_chrom(bands, bcfg, device=device))
     log(f'[5] pyBHFDR path: bhfdr_chrom in {t_b:.2f} s (first call), '
-        f'{len(btable)} peaks; kernel launches {b_launches}')
-    idle = [n for n in ('scan_pass_a', 'scan_pass_b') if b_launches[n] < 1]
+        f'{len(btable)} peaks; kernel launches {bench_b_launches}')
+    idle = [n for n in ('scan_pass_a', 'scan_pass_b')
+            if bench_b_launches[n] < 1]
     if idle:
         raise AssertionError(f'pyBHFDR path did not launch {idle}')
     t0 = time.perf_counter()
@@ -424,27 +492,30 @@ def main():
     n_cand = bands.candidate_total(bcfg.ww, maxapart // RES)
     log(f'[6] pyBHFDR at chr1 scale: bands {bands.raw.shape}, {n_cand} '
         f'candidates (synthesized in {time.perf_counter() - t0:.1f} s)')
-    steady_walls(lambda: engine.bhfdr_chrom(bands, bcfg, device=device),
-                 n_cand, '[6] bhfdr_chrom')
-    chr1_b = kernel_checks(bands, bcfg, device, reps=5, caller='bhfdr')
+    b_launches = steady_walls(
+        counters, lambda: engine.bhfdr_chrom(bands, bcfg, device=device),
+        n_cand, '[6] bhfdr_chrom')
+    idle = [n for n in ('scan_pass_a', 'scan_pass_b') if b_launches[n] < 1]
+    if idle:
+        raise AssertionError(f'pyBHFDR path did not launch {idle}')
+    chr1_b = kernel_checks(bands, bcfg, device, reps=10, caller='bhfdr')
 
     log(smi)
+    # the main keys are the pyHICCUPS path at chr1 scale (phase 4); the
+    # prefixed ones the other shapes, plans and the pyBHFDR caller
+    keys = ('max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
+            'library_ms')
     records = []
     for name, source, replaces in KERNELS:
-        b, c = bench[name], chr1[name]
-        rec = dict(
-            name=name, route='cuda', source=source, replaces=replaces,
-            launches=launches[name], max_abs_err=b['max_abs_err'],
-            ms=b['ms'], plain_ms=b['plain_ms'],
-            chr1_max_abs_err=c['max_abs_err'], chr1_ms=c['ms'],
-            chr1_plain_ms=c['plain_ms'], bhfdr_launches=b_launches[name])
-        if name in bench_b:
-            b, c = bench_b[name], chr1_b[name]
-            rec.update(
-                bhfdr_max_abs_err=b['max_abs_err'], bhfdr_ms=b['ms'],
-                bhfdr_plain_ms=b['plain_ms'],
-                bhfdr_chr1_max_abs_err=c['max_abs_err'],
-                bhfdr_chr1_ms=c['ms'], bhfdr_chr1_plain_ms=c['plain_ms'])
+        rec = dict(name=name, route='cuda', source=source, replaces=replaces,
+                   launches=launches[name],
+                   **{k: chr1[name][k] for k in keys},
+                   bench_launches=bench_launches[name],
+                   bhfdr_launches=b_launches[name])
+        for tag, r in (('bench', bench), ('multi_pair', multi),
+                       ('bhfdr', chr1_b), ('bhfdr_bench', bench_b)):
+            if name in r:
+                rec.update({f'{tag}_{k}': r[name][k] for k in keys})
         records.append(rec)
     log(json.dumps({'kernels': records}))
     log(json.dumps({'ok': True, 'device': {

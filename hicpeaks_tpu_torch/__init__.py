@@ -10,9 +10,11 @@ that runs for CPU tensors.  The command-line tools are
 
 Rules the package keeps:
 
-* it never imports ``jax``; the JAX-free host modules of ``hicpeaks_tpu``
-  (band build, pool plan, clustering, float64 host recomputation, the CLI
-  helpers) are imported as they are;
+* it imports nothing of ``jax`` or ``hicpeaks_tpu``: the host modules it
+  needs (band build and its native C++ library, pool plan, clustering,
+  float64 host recomputation, cooler and bedpe I/O, the CLI helpers) are
+  copies kept here under the same module names, and the native library is
+  built from ``csrc/host/`` at first use;
 * every public entry point takes an explicit ``device``; a CUDA tensor is
   served by its kernel or the call raises — nothing falls back to the CPU.
 """

@@ -19,10 +19,10 @@ import time
 
 import numpy as np
 
-from hicpeaks_tpu.core.config import BHFDRConfig, HiccupsConfig
-from hicpeaks_tpu.ops.band import bands_from_cooler
-
+from .cli.common import chrom_selected
 from .core import engine
+from .core.config import BHFDRConfig, HiccupsConfig
+from .ops.band import bands_from_cooler
 
 log = logging.getLogger(__name__)
 
@@ -53,12 +53,7 @@ def _selected_chroms(clr, chroms):
     """Cooler chromosomes matching the reference's selection convention:
     labels without any 'chr' prefix, '#' for every numeric chromosome
     (scripts/pyHICCUPS:44-46)."""
-    out = []
-    for key in clr.chromnames:
-        label = key.lstrip('chr')
-        if (not chroms) or (label.isdigit() and '#' in chroms) or \
-                (label in chroms):
-            out.append(key)
+    out = [key for key in clr.chromnames if chrom_selected(key, chroms)]
     if chroms and not out:
         log.warning('chromosome selection %s matched none of the cooler\'s '
                     'chromosomes %s (labels are matched after stripping any '
@@ -70,7 +65,7 @@ def _selected_chroms(clr, chroms):
 
 def _run(kind, cooler_uri, cfg, chroms, device, checkpoint_dir, dtype):
     # h5py only where a cooler is read: the engine itself never needs it
-    from hicpeaks_tpu.io.coolerlite import CoolerLite
+    from .io.coolerlite import CoolerLite
 
     device = engine.resolve_device(device)
     caller = engine.hiccups_chrom if kind == 'hiccups' else engine.bhfdr_chrom

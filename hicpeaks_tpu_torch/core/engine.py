@@ -12,7 +12,7 @@ Port of the fused paths of ``hicpeaks_tpu/core/engine.py``:
 
 On the host: the float64 completion of the compacted pixels
 (:mod:`.hostcomplete`), the fold gates, the cross-pair merge and the
-clustering (``hicpeaks_tpu.core.clustering``).
+clustering (:mod:`.clustering`).
 
 The non-fused fallback ladder is not ported (ROADMAP.md, Queue 1 item 10).
 Every case that would take it raises NotImplementedError naming that item:
@@ -24,14 +24,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from hicpeaks_tpu.core import poolplan as host_poolplan
-from hicpeaks_tpu.core.clustering import local_clustering
-from hicpeaks_tpu.core.config import BHFDRConfig, HiccupsConfig
-from hicpeaks_tpu.ops.band import ChromBands
-
 from ..ops import cuda_scan
 from ..ops import score as score_ops
+from ..ops.band import ChromBands
+from ..ops.hostexact import ExactCtx
 from . import poolplan
+from .clustering import local_clustering
+from .config import BHFDRConfig, HiccupsConfig
 from .hostcomplete import FALLBACK_ITEM, _bhfdr_to_host, _compact_to_host
 
 _BH_SLACK = 0.01   # chunk_bh_keep superset inflation: covers the f32 qtab's
@@ -108,7 +107,6 @@ def _exact_ctx(bands, plan, allowed, thr):
     """ExactCtx for float64 host completion, or None without it."""
     if not _exact_capable(bands):
         return None
-    from hicpeaks_tpu.ops.hostexact import ExactCtx
     return ExactCtx(bands, plan, allowed, thr)
 
 
@@ -248,7 +246,7 @@ def _hiccups_fused(bands: ChromBands, cfg: HiccupsConfig, plan, p_list,
     exact_mode = _exact_capable(bands)
     counts, allowed_d, outK, outY = _fused_hiccups_device(
         ops['raw'], ops['w0'], ops['bias'], ops['IR'], ops['gap'],
-        cfg.siglevel, total, host_poolplan.left_threshold(total),
+        cfg.siglevel, total, poolplan.left_threshold(total),
         plan=plan, p_list=p_list, thr=cfg.min_local_reads,
         ww_t=tuple(cfg.ww), wis=tuple((int(p), int(w)) for p, w in pairs),
         ww_min=bands.ww_min, L=int(bands.L), d_lo=min(cfg.ww),
@@ -257,8 +255,8 @@ def _hiccups_fused(bands: ChromBands, cfg: HiccupsConfig, plan, p_list,
         s_rows=score_ops.chunk_rows(o_cap, cfg.siglevel))
     counts_h, allowed_h, fK_all, sK, fY_all, sY = _to_host(
         (counts, allowed_d, outK[:8], outK[9], outY[:8], outY[9]))
-    decision = host_poolplan.emulate_freeze_hiccups(plan, counts_h, total,
-                                                    cfg.ww)
+    decision = poolplan.emulate_freeze_hiccups(plan, counts_h, total,
+                                               cfg.ww)
     if not np.array_equal(allowed_h, np.asarray(decision.allowed)):
         raise AssertionError(
             'device freeze emulation diverged from the host replay')
@@ -290,7 +288,7 @@ def hiccups_chrom(bands: ChromBands, cfg: HiccupsConfig, device,
     device = resolve_device(device)
     res = bands.res
     pw, ww = tuple(cfg.pw), tuple(cfg.ww)
-    plan = tuple(host_poolplan.hiccups_pool_plan(pw, ww, cfg.maxww))
+    plan = tuple(poolplan.hiccups_pool_plan(pw, ww, cfg.maxww))
     p_list = tuple(sorted(set(pw)))
     total = bands.candidate_total(min(ww), cfg.maxapart // res)
     pairs = list(zip(pw, ww))
@@ -367,12 +365,12 @@ def _bhfdr_fused(bands: ChromBands, cfg: BHFDRConfig, plan, total, device):
     ops = bands_to_device(bands, device)
     counts, allowed_d, out = _fused_bhfdr_device(
         ops['raw'], ops['w0'], ops['bias'], ops['IR'], ops['gap'],
-        cfg.siglevel, total, host_poolplan.left_threshold(total),
+        cfg.siglevel, total, poolplan.left_threshold(total),
         plan=plan, p_list=(cfg.pw,), thr=_BHFDR_THR, wi=int(cfg.ww),
         ww_min=bands.ww_min, L=int(bands.L), d_lo=cfg.ww,
         d_hi=cfg.maxapart // bands.res, gap_s=cfg.ww)
     counts_h, allowed_h, fetched = _to_host((counts, allowed_d, out[:10]))
-    decision = host_poolplan.emulate_freeze_bhfdr(plan, counts_h, total)
+    decision = poolplan.emulate_freeze_bhfdr(plan, counts_h, total)
     if not np.array_equal(allowed_h, np.asarray(decision.allowed)):
         raise AssertionError(
             'device freeze emulation diverged from the host replay')
@@ -390,7 +388,7 @@ def bhfdr_chrom(bands: ChromBands, cfg: BHFDRConfig, device, mesh=None,
     :func:`hiccups_chrom`."""
     device = resolve_device(device)
     res = bands.res
-    plan = tuple(host_poolplan.bhfdr_pool_plan(cfg.pw, cfg.ww, cfg.maxww))
+    plan = tuple(poolplan.bhfdr_pool_plan(cfg.pw, cfg.ww, cfg.maxww))
     total = bands.candidate_total(cfg.ww, cfg.maxapart // res)
     _refuse_unported(mesh, check, total)
     r = _bhfdr_fused(bands, cfg, plan, total, device)

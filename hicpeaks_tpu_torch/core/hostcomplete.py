@@ -14,7 +14,7 @@ statistics in float64 on the host, as ``hicpeaks_tpu`` does:
   global-BH bundle of the pyBHFDR path.
 
 The exact branches recompute each pixel's E in float64
-(``hicpeaks_tpu.ops.hostexact``).  The histogram branch moves lambda-chunk
+(:mod:`hicpeaks_tpu_torch.ops.hostexact`).  The histogram branch moves lambda-chunk
 edge suspects to their float64 chunk and audits the device's count
 thresholds against the corrected table; the global-BH branch ranks the
 superset's float64 p-values among themselves.
@@ -22,6 +22,8 @@ superset's float64 p-values among themselves.
 from __future__ import annotations
 
 import numpy as np
+
+from ..ops import hostexact
 
 FALLBACK_ITEM = ('the non-fused fallback ladder (ROADMAP.md, Queue 1 '
                  'item 10) is not ported yet')
@@ -96,7 +98,6 @@ def _bhfdr_to_host(fetched, prod, sig, exact=None):
     Ovn, ICEn, Foldn = Ov[:n], ICEv[:n], Foldv[:n]
     E64 = np.asarray(Ev[:n], np.float64)
     if exact is not None:
-        from hicpeaks_tpu.ops import hostexact
         ctx, p_set, kind = exact
         Ovn, E64, Foldn, ICEn = hostexact.exact_stats(
             ctx, d_idx, x_idx, p_set, kind)
@@ -135,7 +136,6 @@ def _compact_to_host(fetched, prod, sig, exact=None, sus=None):
                     ICE=ICEv[:n][fin], Fold=Foldv[:n][fin], p=p64[fin],
                     q=q64[fin], prod=prod)
 
-    from hicpeaks_tpu.ops import hostexact
     ctx, p_set, kind = exact
     hist64 = np.asarray(hist, np.int64)
     S, C = hist64.shape

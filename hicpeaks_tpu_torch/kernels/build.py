@@ -1,6 +1,6 @@
-"""Build and load the package's CUDA kernels.
+"""Build and load the package's CUDA kernels and its native host library.
 
-The sources under ``hicpeaks_tpu_torch/csrc/`` are compiled by ``nvcc``
+The CUDA sources under ``hicpeaks_tpu_torch/csrc/`` are compiled by ``nvcc``
 for Hopper (``sm_90a``), one ``nvcc`` per source, all started together,
 and linked into ONE shared library with a plain C interface, loaded with
 ``ctypes``.  The build happens at first use, from the
@@ -11,6 +11,13 @@ PyTorch twins.
 
 Floating-point contraction is off (``--fmad=false``) because the pass-B
 kernel replays the ring scan's add chains bit for bit.
+
+The host library (``csrc/host/bandbuild.cpp``: the band scatter and the
+float64 ring sums) is compiled by the host C++ compiler into
+``build/host/`` at first use, with the flags the JAX package's native
+Makefile uses.  They fix the float contraction of the float64 band and
+ring sums, which must equal the JAX package's bit for bit.  A failed build
+raises.
 """
 from __future__ import annotations
 
@@ -31,6 +38,10 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-O3',
               '--fmad=false', '-std=c++17', '-Xcompiler', '-fPIC',
               '-Xptxas', '-v')
 
+HOST_SRC = os.path.join(CSRC_DIR, 'host', 'bandbuild.cpp')
+HOST_BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), 'build', 'host')
+CXX_FLAGS = ('-O3', '-march=native', '-std=c++17', '-fPIC', '-pthread')
+
 _vp = ctypes.c_void_p
 _i32 = ctypes.c_int
 _i64 = ctypes.c_longlong
@@ -39,13 +50,13 @@ _f32 = ctypes.c_float
 #: C entry points: name -> argtypes (each returns the cudaError_t of its
 #: launch as an int).
 SIGNATURES = {
-    # raw, cand, num_p, Lp, meta, n_e, maxw, thr, counts, stream
-    'hp_scan_pass_a': [_vp, _vp, _i32, _i32, _vp, _i32, _i32, _f32, _vp,
-                       _vp],
-    # raw, cband, eband, cand, allowed, num_p, Lp, meta, n_e, n_p, maxw,
-    # thr, out, stream
+    # raw, cand, num_p, Lp, meta, n_meta, n_e, maxw, thr, counts, stream
+    'hp_scan_pass_a': [_vp, _vp, _i32, _i32, _vp, _i32, _i32, _i32, _f32,
+                       _vp, _vp],
+    # raw, cband, eband, cand, allowed, num_p, Lp, meta, n_meta, n_e, n_p,
+    # maxw, thr, out, stream
     'hp_scan_pass_b': [_vp, _vp, _vp, _vp, _vp, _i32, _i32, _vp, _i32, _i32,
-                       _i32, _f32, _vp, _vp],
+                       _i32, _i32, _f32, _vp, _vp],
     # oc, cid, n, B, S, C, hist, blocks, stream
     'hp_chunk_hist': [_vp, _vp, _i64, _i32, _i32, _i32, _vp, _i32, _vp],
 }
@@ -80,14 +91,20 @@ def _nvcc():
                        'kernels of hicpeaks_tpu_torch cannot be built')
 
 
-def library_path():
-    """Build-output path for the current sources and flags."""
-    h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
-    for src in _sources():
+def _hashed_path(build_dir, stem, flags, sources):
+    """Build-output path named by a hash of the flags and the sources."""
+    h = hashlib.sha256(' '.join(flags).encode())
+    for src in sources:
         h.update(os.path.basename(src).encode())
         with open(src, 'rb') as f:
             h.update(f.read())
-    return os.path.join(BUILD_DIR, f'libhicpeaks_kernels_{h.hexdigest()[:16]}.so')
+    return os.path.join(build_dir, f'{stem}_{h.hexdigest()[:16]}.so')
+
+
+def library_path():
+    """Build-output path for the current sources and flags."""
+    return _hashed_path(BUILD_DIR, 'libhicpeaks_kernels', NVCC_FLAGS,
+                        _sources())
 
 
 def build():
@@ -127,6 +144,28 @@ def build():
     dt = time.perf_counter() - t0
     os.replace(tmp, path)
     return path, ''.join(outputs) + proc.stdout + proc.stderr, dt
+
+
+def build_host():
+    """Compile the native host library if its hashed file is missing;
+    returns its path.  Raises if the compiler is missing or fails."""
+    path = _hashed_path(HOST_BUILD_DIR, 'libhicpeaks_host', CXX_FLAGS,
+                        [HOST_SRC])
+    if os.path.exists(path):
+        return path
+    cxx = shutil.which('g++')
+    if cxx is None:
+        raise RuntimeError('g++ not found on PATH: the native host library '
+                           'of hicpeaks_tpu_torch cannot be built')
+    os.makedirs(HOST_BUILD_DIR, exist_ok=True)
+    tmp = f'{path}.tmp.{os.getpid()}'
+    cmd = [cxx, *CXX_FLAGS, '-shared', '-o', tmp, HOST_SRC]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f'host library build failed (rc {proc.returncode})'
+                           f':\n{" ".join(cmd)}\n{proc.stdout}{proc.stderr}')
+    os.replace(tmp, path)
+    return path
 
 
 _LOCK = threading.Lock()

@@ -19,7 +19,7 @@ from typing import Sequence
 
 import torch
 
-from hicpeaks_tpu.core.poolplan import PoolEntry
+from ..core.poolplan import PoolEntry
 
 
 def shift2(a, dd, dx):

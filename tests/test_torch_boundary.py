@@ -1,6 +1,7 @@
-"""The port's boundary: hicpeaks_tpu_torch (engines, API, CLI) never
-imports JAX (nor h5py on the engine path), and a CUDA request on a machine
-without CUDA raises instead of running on the CPU.
+"""The port's boundary: hicpeaks_tpu_torch (engines, API, CLI) imports
+nothing of JAX or of the JAX package (nor h5py on the engine path), and a
+CUDA request on a machine without CUDA raises instead of running on the
+CPU.
 
 The import check runs in a subprocess, because this test session has
 imported JAX already (tests/conftest.py)."""
@@ -16,15 +17,31 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _PROBE = textwrap.dedent('''
+    import importlib.abc
     import sys
+
+
+    class Refuse(importlib.abc.MetaPathFinder):
+        """Refuses jax and the JAX package before anything is imported."""
+
+        def find_spec(self, name, path=None, target=None):
+            if name == 'jax' or name.startswith('jax.') or \\
+                    name == 'hicpeaks_tpu' or name.startswith('hicpeaks_tpu.'):
+                raise ImportError(f'the port imported {name}')
+            return None
+
+
+    sys.meta_path.insert(0, Refuse())
+
     import numpy as np
     import hicpeaks_tpu_torch
     import hicpeaks_tpu_torch.api
-    import hicpeaks_tpu_torch.cli.peakcall
-    from hicpeaks_tpu.core.config import BHFDRConfig, HiccupsConfig
-    from hicpeaks_tpu.ops.band import build_bands
+    import hicpeaks_tpu_torch.cli.peakcall as cli
+    from hicpeaks_tpu_torch.core.config import BHFDRConfig, HiccupsConfig
     from hicpeaks_tpu_torch.core.engine import bhfdr_chrom, hiccups_chrom
-    from hicpeaks_tpu_torch.hostio import synthesize_chrom, write_bhfdr_bedpe
+    from hicpeaks_tpu_torch.io.peakfile import write_bhfdr_bedpe
+    from hicpeaks_tpu_torch.io.synth import synthesize_chrom
+    from hicpeaks_tpu_torch.ops.band import build_bands
 
     res, L, maxapart, maxww = 10000, 600, 300000, 10
     num = maxapart // res + maxww + 1
@@ -38,28 +55,48 @@ _PROBE = textwrap.dedent('''
                           device='cpu')
     btable = bhfdr_chrom(bands, BHFDRConfig(maxapart=maxapart), device='cpu')
     write_bhfdr_bedpe(sys.stderr, '1', res, btable)
-    print(len(table), len(btable), 'jax' in sys.modules,
-          'h5py' in sys.modules)
+    engine_h5py = 'h5py' in sys.modules
+
+    # the pyBHFDR CLI end to end on a tiny synthetic cooler (h5py from here)
+    from hicpeaks_tpu_torch.io.synth import synthetic_cooler
+    tmp = sys.argv[1]
+    uri, _ = synthetic_cooler(f'{tmp}/probe.cool', n_bins=400, res=res,
+                              chrom='1', seed=3, depth=40.0, n_loops=20,
+                              decay=0.75, max_loop_span_bins=150)
+    rc = cli.main(['pyBHFDR', '-O', f'{tmp}/probe.bedpe', '-p', uri,
+                   '--maxapart', '1000000', '--device', 'cpu',
+                   '--logFile', f'{tmp}/probe.log'])
+    with open(f'{tmp}/probe.bedpe') as f:
+        n_lines = len(f.read().splitlines())
+    jaxpkg = sorted(m for m in sys.modules
+                    if m in ('jax', 'hicpeaks_tpu') or
+                    m.startswith(('jax.', 'hicpeaks_tpu.')))
+    print(len(table), len(btable), rc, n_lines, engine_h5py,
+          ','.join(jaxpkg) or '-')
 ''')
 
 
-def test_port_never_imports_jax_or_h5py():
+def test_port_never_imports_jax_or_h5py(tmp_path):
     env = dict(os.environ, PYTHONPATH=REPO)
-    proc = subprocess.run([sys.executable, '-c', _PROBE], env=env, cwd=REPO,
-                          capture_output=True, text=True, timeout=300)
+    proc = subprocess.run([sys.executable, '-c', _PROBE, str(tmp_path)],
+                          env=env, cwd=REPO, capture_output=True, text=True,
+                          timeout=300)
     assert proc.returncode == 0, proc.stderr
-    n_peaks, n_bhfdr, has_jax, has_h5py = proc.stdout.split()
+    n_peaks, n_bhfdr, rc, n_lines, engine_h5py, jaxpkg = \
+        proc.stdout.split()
     assert int(n_peaks) > 0 and int(n_bhfdr) > 0
-    assert (has_jax, has_h5py) == ('False', 'False')
+    assert (rc, engine_h5py) == ('0', 'False')
+    assert int(n_lines) > 0
+    assert jaxpkg == '-', f'modules of jax or hicpeaks_tpu loaded: {jaxpkg}'
 
 
 def test_cuda_request_without_cuda_raises():
     if torch.cuda.is_available():
         pytest.skip('this machine has CUDA; the refusal path needs none')
-    from hicpeaks_tpu.core.config import BHFDRConfig, HiccupsConfig
-    from hicpeaks_tpu.ops.band import build_bands
+    from hicpeaks_tpu_torch.core.config import BHFDRConfig, HiccupsConfig
     from hicpeaks_tpu_torch.core.engine import bhfdr_chrom, hiccups_chrom
     from hicpeaks_tpu_torch.ops import cuda_hist, cuda_scan
+    from hicpeaks_tpu_torch.ops.band import build_bands
 
     rng = np.random.default_rng(0)
     L, num = 200, 40

@@ -2,13 +2,14 @@
 twins at small shapes, on the card.
 
 These need a CUDA card and nvcc; they carry the ``cuda`` marker and skip
-elsewhere.  On a GPU host: ``python -m pytest tests/test_torch_kernels.py``
-(chip_smoke.py makes the same checks at the main path's shapes)."""
+elsewhere.  On a GPU host: ``python -m pytest --noconftest
+tests/test_torch_kernels.py`` (tests/conftest.py imports JAX;
+chip_smoke.py makes the same checks at the main path's shapes)."""
 import numpy as np
 import pytest
 import torch
 
-from hicpeaks_tpu.core import poolplan
+from hicpeaks_tpu_torch.core import poolplan
 from hicpeaks_tpu_torch.ops import cuda_hist, cuda_scan
 from hicpeaks_tpu_torch.ops import scan as twin
 
@@ -85,6 +86,46 @@ def test_scan_kernels_match_twin_on_bhfdr_gate(device, num_p, Lp, L, pw, ww,
         assert torch.equal(got_b[pw][t], want_b[pw][t]), t
 
 
+@pytest.mark.parametrize('num_p,Lp,L', [(40, 70, 66), (33, 97, 90),
+                                        (64, 256, 243)])
+@pytest.mark.parametrize('pw,ww,maxww,thr', [([1, 2], [3, 5], 10, 90),
+                                             ([1, 2, 4], [3, 5, 6], 9, 40),
+                                             ([0], [1], 1, 2)])
+def test_scan_kernels_match_twin_on_drift_readds_and_cut_gate(
+        device, num_p, Lp, L, pw, ww, maxww, thr):
+    """Multi-pair plans whose drift re-adds reach captured sums (a high
+    threshold spreads the captures over the entries), maxw 1, ragged
+    shapes, and a gate that cuts the later entries."""
+    raw, cband, eband, cand = _bands(num_p, Lp, L, num_p * 7 + Lp, device)
+    plan = tuple(poolplan.hiccups_pool_plan(pw, ww, maxww))
+    p_list = tuple(sorted(set(pw)))
+    got_a = cuda_scan.scan_pass_a(raw, cand, plan, p_list, thr)
+    assert torch.equal(got_a, twin.scan_pass_a(raw, cand, plan, p_list, thr))
+    for cut in (len(plan), (len(plan) + 1) // 2):
+        allowed = torch.zeros(len(plan), dtype=torch.bool, device=device)
+        allowed[:cut] = True
+        args = (raw, cband, eband, cand, allowed, plan, p_list, thr)
+        got_b = cuda_scan.scan_pass_b(*args)
+        want_b = twin.scan_pass_b(*args)[2]
+        torch.cuda.synchronize()
+        for p in p_list:
+            for t in range(4):
+                assert torch.equal(got_b[p][t], want_b[p][t]), (cut, p, t)
+
+
+def test_scan_wrappers_refuse_plans_beyond_the_kernel_limits(device):
+    raw, cband, eband, cand = _bands(16, 64, 60, 1, device)
+    wide = tuple(poolplan.hiccups_pool_plan([2], [5], 24))
+    with pytest.raises(ValueError, match='shared memory'):
+        cuda_scan.scan_pass_b(raw, cband, eband, cand,
+                              torch.ones(len(wide), dtype=torch.bool,
+                                         device=device), wide, (2,), 8)
+    # six distinct drift re-adds: more than the kernels keep in registers
+    many = tuple(poolplan.hiccups_pool_plan([1, 7], [8, 9], 10))
+    with pytest.raises(ValueError, match='re-adds'):
+        cuda_scan.scan_pass_a(raw, cand, many, (1, 7), 8)
+
+
 @pytest.mark.parametrize('n,S,C,B', [(5000, 40, 1025, 2), (70000, 128, 513, 1),
                                      (300, 16, 33, 3), (20000, 128, 4097, 2)])
 def test_hist_kernel_matches_twin(device, n, S, C, B):
@@ -102,10 +143,10 @@ def test_hiccups_chrom_on_card_matches_cpu(device, pw, ww):
     """The main path on the card (kernels) gives the CPU run's table
     (twins): the float64 host completion absorbs the ulp-level differences
     of CUDA's f32 log/pow/gammainc."""
-    from hicpeaks_tpu.core.config import HiccupsConfig
-    from hicpeaks_tpu.ops.band import build_bands
+    from hicpeaks_tpu_torch.core.config import HiccupsConfig
     from hicpeaks_tpu_torch.core.engine import hiccups_chrom
-    from hicpeaks_tpu_torch.hostio import synthesize_chrom
+    from hicpeaks_tpu_torch.io.synth import synthesize_chrom
+    from hicpeaks_tpu_torch.ops.band import build_bands
     res, L, maxapart, maxww = 10000, 1500, 600000, 10
     num = maxapart // res + maxww + 1
     b1, b2, ct, _, bias = synthesize_chrom(n_bins=L, res=res, seed=1,
@@ -135,10 +176,10 @@ def test_bhfdr_chrom_on_card_matches_cpu(device, pw, ww):
     """The pyBHFDR path on the card (scan kernels, f32 gammainc of the
     keep superset) gives the CPU run's table: the host recomputes every
     emitted p and q in float64."""
-    from hicpeaks_tpu.core.config import BHFDRConfig
-    from hicpeaks_tpu.ops.band import build_bands
+    from hicpeaks_tpu_torch.core.config import BHFDRConfig
     from hicpeaks_tpu_torch.core.engine import bhfdr_chrom
-    from hicpeaks_tpu_torch.hostio import synthesize_chrom
+    from hicpeaks_tpu_torch.io.synth import synthesize_chrom
+    from hicpeaks_tpu_torch.ops.band import build_bands
     res, L, maxapart, maxww = 10000, 1500, 600000, 10
     num = maxapart // res + maxww + 1
     b1, b2, ct, _, bias = synthesize_chrom(n_bins=L, res=res, seed=2,
