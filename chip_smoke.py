@@ -32,11 +32,19 @@ without a CUDA card.  Phases:
    < 1e-8, identical sorted 13-column bedpe lines);
 6. pyBHFDR at chr1 scale (L=24,900 at 10 kb, 2 Mb): the kernel launches
    of the first ``bhfdr_chrom`` call and the steady wall of the second,
-   and the scan-kernel checks of phase 5 on that chromosome's sheets.
+   and the scan-kernel checks of phase 5 on that chromosome's sheets;
+7. deep data: the histogram against its twin and ``torch.bincount``
+   (median of 20) at three count caps, B = 2 on the chr1 band: (a) phase
+   4's inputs (o_cap 1024, S = 40), (b) the chr1 synthesis at depth
+   DEEP_DEPTH (o_cap 16384, S = 48), (c) (b)'s ids with log-uniform counts
+   over [0, 131072] (S = 56), printed as one ``chunk_hist_shapes`` JSON
+   line; the kernel checks of phase 2 on (b)'s sheets; then
+   ``hiccups_chrom`` on the bench-shape chromosome at that depth (o_cap
+   >= 2048 asserted) with its launch counts, against the float64 oracle.
 
 The line before the last is one JSON object with a record per kernel (its
-main keys from phase 4, the others prefixed by phase); the last line is
-{"ok": true, "device": {...}}.
+main keys from phase 4, the others prefixed by phase or histogram shape);
+the last line is {"ok": true, "device": {...}}.
 """
 import io
 import json
@@ -51,6 +59,8 @@ RES = 10000
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet, at the 700 W limit
 F32_OPS_PER_S = 67e12
 PW, WW, MAXWW = (2,), (5,), 10
+# phase 7's synthesis depth: chr1 (seed 42) then plans o_cap 16384
+DEEP_DEPTH = 640.0
 KERNELS = (
     ('scan_pass_a', 'hicpeaks_tpu_torch/csrc/scan_pass_a.cu',
      'hicpeaks_tpu/ops/pallas_scan.py:141'),
@@ -65,7 +75,7 @@ def log(msg):
     print(msg, flush=True)
 
 
-def synth_bands(L, maxapart, seed, n_loops, span, lane_pad):
+def synth_bands(L, maxapart, seed, n_loops, span, lane_pad, depth=40.0):
     """A synthetic chromosome's host bands, built in memory as bench.py and
     benchmarks/genome_scale.py build theirs."""
     import numpy as np
@@ -73,7 +83,7 @@ def synth_bands(L, maxapart, seed, n_loops, span, lane_pad):
     from hicpeaks_tpu_torch.ops.band import build_bands
     num = maxapart // RES + MAXWW + 1
     b1, b2, ct, _, bias_vec = synthesize_chrom(
-        n_bins=L, res=RES, seed=seed, depth=40.0, n_loops=n_loops,
+        n_bins=L, res=RES, seed=seed, depth=depth, n_loops=n_loops,
         decay=0.75, max_loop_span_bins=span)
     w = np.full(L, np.nan)
     ok = bias_vec > 0
@@ -83,8 +93,9 @@ def synth_bands(L, maxapart, seed, n_loops, span, lane_pad):
     return bands, w, bias_vec
 
 
-def cuda_ms(fn, reps):
-    """Median milliseconds of ``fn`` by CUDA events, after one warm-up."""
+def cuda_samples(fn, reps):
+    """``reps`` samples of the milliseconds of one call of ``fn`` by CUDA
+    events, after one warm-up."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -97,7 +108,12 @@ def cuda_ms(fn, reps):
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
-    return statistics.median(times)
+    return times
+
+
+def cuda_ms(fn, reps):
+    """Median milliseconds of ``fn`` by CUDA events (:func:`cuda_samples`)."""
+    return statistics.median(cuda_samples(fn, reps))
 
 
 def bound_ms(bytes_, ops):
@@ -118,14 +134,51 @@ def max_abs(a, b):
     return float(torch.max(torch.abs(a.double() - b.double())))
 
 
-def kernel_checks(bands, cfg, device, reps, caller='hiccups'):
+def hist_check(oc, cid0, S, C, reps, kernel=None):
+    """The histogram kernel (``kernel``, default the package's
+    ``cuda_hist.chunk_hist``) against its twin and against one
+    ``torch.bincount`` of the same inputs; raises on any disagreement and
+    returns {max_abs_err, ms, plain_ms, library_ms, bound_ms, bound_by,
+    bytes, ops}."""
+    import torch
+    from hicpeaks_tpu_torch.ops import cuda_hist
+    kernel = kernel or cuda_hist.chunk_hist
+    h_k = kernel(oc, cid0, S, C)
+    h_t = cuda_hist.chunk_hist_torch(oc, cid0, S, C)
+    if not torch.equal(h_k, h_t):
+        raise AssertionError(f'histogram differs by up to {max_abs(h_k, h_t)}')
+    # the library yardstick: one torch.bincount over the flat (background,
+    # chunk, count) index of the same inputs (every id and count is in
+    # range, as the scorer's clamps leave them); the port never calls it
+    B = cid0.shape[0]
+    flat = ((torch.arange(B, device=oc.device)[:, None] * S
+             + cid0.long()) * C + oc.long()[None, :]).reshape(-1)
+    lib_h = torch.bincount(flat, minlength=B * S * C)
+    if not torch.equal(lib_h.reshape(B * S, C).to(torch.int32), h_k):
+        raise AssertionError('torch.bincount disagrees with the histogram')
+    del lib_h
+    return dict(
+        max_abs_err=max_abs(h_k, h_t),
+        ms=cuda_ms(lambda: kernel(oc, cid0, S, C), reps),
+        plain_ms=cuda_ms(lambda: cuda_hist.chunk_hist_torch(oc, cid0, S, C),
+                         reps),
+        library_ms=cuda_ms(lambda: torch.bincount(flat, minlength=B * S * C),
+                           reps),
+        # int32 counts and ids in, the int32 table out; one integer
+        # increment per (background, pixel)
+        **bound_ms(bytes_=oc.numel() * 4 + cid0.numel() * 4 + B * S * C * 4,
+                   ops=cid0.numel()))
+
+
+def kernel_checks(bands, cfg, device, reps, caller='hiccups', keep=None):
     """Each kernel of ``caller``'s path ('hiccups' or 'bhfdr') against its
     twin on the sheets, plan and freeze gate that path gives it.  Raises on
     any disagreement; returns {name: {max_abs_err, ms, plain_ms,
-    library_ms, bound_ms, bound_by, bytes, ops}}."""
+    library_ms, bound_ms, bound_by, bytes, ops}}.  A dict ``keep`` receives
+    the histogram's inputs (oc, cid0, S, C) of the pyHICCUPS path."""
     import torch
     from hicpeaks_tpu_torch.core import engine, poolplan
-    from hicpeaks_tpu_torch.ops import cuda_hist, cuda_scan, score
+    from hicpeaks_tpu_torch.ops import cuda_scan, score
     from hicpeaks_tpu_torch.ops import scan as twin
 
     res = bands.res
@@ -230,33 +283,9 @@ def kernel_checks(bands, cfg, device, reps, caller='hiccups'):
             .reshape(-1)
         cid0 = torch.where(valid, torch.clamp(cid, 1, S - 1), 0) \
             .reshape(E.shape[0], -1).contiguous()
-        h_k = cuda_hist.chunk_hist(oc, cid0, S, C)
-        h_t = cuda_hist.chunk_hist_torch(oc, cid0, S, C)
-        if not torch.equal(h_k, h_t):
-            raise AssertionError(
-                f'histogram differs by up to {max_abs(h_k, h_t)}')
-        # the library yardstick: one torch.bincount over the flat
-        # (background, chunk, count) index of the same inputs (every id and
-        # count is in range after the clamps above); the port never calls it
-        B = cid0.shape[0]
-        flat = ((torch.arange(B, device=raw.device)[:, None] * S
-                 + cid0.long()) * C + oc.long()[None, :]).reshape(-1)
-        lib_h = torch.bincount(flat, minlength=B * S * C)
-        if not torch.equal(lib_h.reshape(B * S, C).to(torch.int32), h_k):
-            raise AssertionError('torch.bincount disagrees with the histogram')
-        del lib_h
-        out['chunk_hist'] = dict(
-            max_abs_err=max_abs(h_k, h_t),
-            ms=cuda_ms(lambda: cuda_hist.chunk_hist(oc, cid0, S, C), reps),
-            plain_ms=cuda_ms(lambda: cuda_hist.chunk_hist_torch(oc, cid0, S,
-                                                                C), reps),
-            library_ms=cuda_ms(lambda: torch.bincount(flat,
-                                                      minlength=B * S * C),
-                               reps),
-            # int32 counts and ids in, the int32 table out; one integer
-            # increment per (background, pixel)
-            **bound_ms(bytes_=oc.numel() * 4 + cid0.numel() * 4
-                       + B * S * C * 4, ops=cid0.numel()))
+        if keep is not None:
+            keep.update(oc=oc, cid0=cid0, S=S, C=C)
+        out['chunk_hist'] = hist_check(oc, cid0, S, C, reps)
     for name, r in out.items():
         lib = '' if r['library_ms'] is None else \
             f', library call {r["library_ms"]:.3f} ms'
@@ -375,6 +404,97 @@ def steady_walls(counters, call, n_cand, tag):
     return launches
 
 
+def chr1_hist_streams(device, depth):
+    """The histogram's inputs at chr1 scale (phase 4's synthesis, seed 42,
+    10 Mb) synthesized at ``depth``, with the kernel checks of phase 2 on
+    its sheets (3 repeats); returns {oc, cid0, S, C}."""
+    from hicpeaks_tpu_torch.core import engine
+    from hicpeaks_tpu_torch.core.config import HiccupsConfig
+    maxapart = 10_000_000
+    num = maxapart // RES + MAXWW + 1
+    t0 = time.perf_counter()
+    bands, _, _ = synth_bands(24900, maxapart, seed=42, n_loops=2000,
+                              span=num - MAXWW - 54, lane_pad=4096,
+                              depth=depth)
+    cfg = HiccupsConfig(pw=PW, ww=WW, maxww=MAXWW, maxapart=maxapart)
+    log(f'  chr1 at depth {depth}: bands {bands.raw.shape}, max count '
+        f'{bands.max_count:.0f}, o_cap {engine._bh_plan(bands.max_count)}, '
+        f'{bands.candidate_total(min(WW), maxapart // RES)} candidates '
+        f'(synthesized in {time.perf_counter() - t0:.1f} s)')
+    streams = {}
+    kernel_checks(bands, cfg, device, reps=3, keep=streams)
+    return streams
+
+
+def cap_hist_streams(streams_b, device):
+    """Shape (c): (b)'s ids with counts drawn log-uniformly over
+    [0, 131072] (numpy, seed 7), at the histogram's count cap."""
+    import numpy as np
+    import torch
+    from hicpeaks_tpu_torch.ops import score
+    o_cap = 1 << 17
+    oc = np.floor(np.exp(np.random.default_rng(7).random(
+        streams_b['oc'].numel()) * np.log(o_cap + 2))) - 1
+    return dict(oc=torch.from_numpy(np.minimum(oc, o_cap).astype(np.int32))
+                .to(device), cid0=streams_b['cid0'],
+                S=score.chunk_rows(o_cap), C=o_cap + 1)
+
+
+def deep_data(streams_a, device, counters):
+    """Phase 7: the histogram at three count caps, B = 2 on the chr1 band,
+    then the main path on the bench-shape chromosome at DEEP_DEPTH against
+    the float64 oracle.  (a) is phase 4's streams (o_cap 1024); (b) the
+    same chromosome synthesized at DEEP_DEPTH, whose largest count plans
+    o_cap 16384; (c) :func:`cap_hist_streams`.  Returns ({shape: record},
+    the deep main path's launches)."""
+    from hicpeaks_tpu_torch.core import engine
+    from hicpeaks_tpu_torch.core.config import HiccupsConfig
+
+    log('[7] deep data')
+    streams_b = chr1_hist_streams(device, DEEP_DEPTH)
+    streams_c = cap_hist_streams(streams_b, device)
+    shapes = {}
+    for tag, st in (('a', streams_a), ('b', streams_b), ('c', streams_c)):
+        r = hist_check(st['oc'], st['cid0'], st['S'], st['C'], reps=20)
+        r.update(B=st['cid0'].shape[0], n=st['oc'].numel(), S=st['S'],
+                 C=st['C'], o_max=int(st['oc'].max()))
+        shapes[tag] = r
+        log(f'[7] histogram ({tag}) B={r["B"]} n={r["n"]} S={r["S"]} '
+            f'C={r["C"]}: kernel == twin == torch.bincount; kernel '
+            f'{r["ms"]:.4f} ms, twin {r["plain_ms"]:.3f} ms, torch.bincount '
+            f'{r["library_ms"]:.3f} ms; bound {r["bound_ms"]:.4f} ms '
+            f'({r["bytes"]} B), {r["bound_ms"] / r["ms"]:.1%} of it')
+    del streams_b, streams_c
+    log(json.dumps({'chunk_hist_shapes': shapes}))
+
+    # the main path on the bench-shape chromosome at the raised depth
+    maxapart = 2_000_000
+    num = maxapart // RES + MAXWW + 1
+    bands, w, bias_vec = synth_bands(
+        8192, maxapart, seed=0, n_loops=200, span=min(200, num - MAXWW - 2),
+        lane_pad=128, depth=DEEP_DEPTH)
+    o_cap = engine._bh_plan(bands.max_count)
+    if o_cap < 2048:
+        raise AssertionError(f'the deep bench shape plans o_cap {o_cap}, '
+                             'the shared-table size of shallow data')
+    cfg = HiccupsConfig(pw=PW, ww=WW, maxww=MAXWW, maxapart=maxapart)
+    table, t_main, launches = run_counted(
+        counters, lambda: engine.hiccups_chrom(bands, cfg, device=device))
+    log(f'[7] deep bench shape (depth {DEEP_DEPTH}, max count '
+        f'{bands.max_count:.0f}, o_cap {o_cap}): hiccups_chrom in '
+        f'{t_main:.2f} s (first call), {len(table)} peaks; kernel launches '
+        f'{launches}')
+    idle = [n for n, c in launches.items() if c < 1]
+    if idle:
+        raise AssertionError(f'deep main path did not launch {idle}')
+    t0 = time.perf_counter()
+    want = oracle_table(dense_inputs(bands, w, bias_vec, min(WW)), cfg)
+    max_rel = compare_to_oracle(table, want)
+    log(f'[7] oracle ({time.perf_counter() - t0:.1f} s): {len(want)} peaks; '
+        f'loci identical, geometry identical, max rel stat diff {max_rel:.3g}')
+    return shapes, launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -455,7 +575,8 @@ def main():
     idle = [n for n, c in launches.items() if c < 1]
     if idle:
         raise AssertionError(f'main path did not launch {idle}')
-    chr1 = kernel_checks(bands, cfg, device, reps=10)
+    streams_a = {}
+    chr1 = kernel_checks(bands, cfg, device, reps=10, keep=streams_a)
 
     # --- 5: pyBHFDR at the bench shape and the pyBHFDR CLI defaults ---
     bands, maxapart = bench_bands, 2_000_000
@@ -500,6 +621,9 @@ def main():
         raise AssertionError(f'pyBHFDR path did not launch {idle}')
     chr1_b = kernel_checks(bands, bcfg, device, reps=10, caller='bhfdr')
 
+    # --- 7: deep data, at the count caps of real-depth Hi-C ---
+    shapes, deep_launches = deep_data(streams_a, device, counters)
+
     log(smi)
     # the main keys are the pyHICCUPS path at chr1 scale (phase 4); the
     # prefixed ones the other shapes, plans and the pyBHFDR caller
@@ -511,11 +635,15 @@ def main():
                    launches=launches[name],
                    **{k: chr1[name][k] for k in keys},
                    bench_launches=bench_launches[name],
-                   bhfdr_launches=b_launches[name])
+                   bhfdr_launches=b_launches[name],
+                   deep_launches=deep_launches[name])
         for tag, r in (('bench', bench), ('multi_pair', multi),
                        ('bhfdr', chr1_b), ('bhfdr_bench', bench_b)):
             if name in r:
                 rec.update({f'{tag}_{k}': r[name][k] for k in keys})
+        if name == 'chunk_hist':
+            for tag, r in shapes.items():
+                rec.update({f'shape_{tag}_{k}': r[k] for k in keys})
         records.append(rec)
     log(json.dumps({'kernels': records}))
     log(json.dumps({'ok': True, 'device': {

@@ -76,9 +76,9 @@ class KernelLibrary:
             fn.restype = ctypes.c_int
 
 
-def _sources():
-    return sorted(glob.glob(os.path.join(CSRC_DIR, '*.cu'))
-                  + glob.glob(os.path.join(CSRC_DIR, '*.cuh')))
+def _sources(csrc_dir=CSRC_DIR):
+    return sorted(glob.glob(os.path.join(csrc_dir, '*.cu'))
+                  + glob.glob(os.path.join(csrc_dir, '*.cuh')))
 
 
 def _nvcc():
@@ -101,24 +101,25 @@ def _hashed_path(build_dir, stem, flags, sources):
     return os.path.join(build_dir, f'{stem}_{h.hexdigest()[:16]}.so')
 
 
-def library_path():
-    """Build-output path for the current sources and flags."""
-    return _hashed_path(BUILD_DIR, 'libhicpeaks_kernels', NVCC_FLAGS,
-                        _sources())
+def library_path(csrc_dir=CSRC_DIR, build_dir=BUILD_DIR):
+    """Build-output path for the sources of ``csrc_dir`` and the flags."""
+    return _hashed_path(build_dir, 'libhicpeaks_kernels', NVCC_FLAGS,
+                        _sources(csrc_dir))
 
 
-def build():
-    """Compile the kernels if the hashed library is missing; returns
-    (path, compiler output, seconds spent)."""
-    path = library_path()
+def build(csrc_dir=CSRC_DIR, build_dir=BUILD_DIR):
+    """Compile the kernels of ``csrc_dir`` (default the package's) into
+    ``build_dir`` if the hashed library is missing; returns (path, compiler
+    output, seconds spent)."""
+    path = library_path(csrc_dir, build_dir)
     if os.path.exists(path):
         return path, '', 0.0
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    os.makedirs(build_dir, exist_ok=True)
     tmp = f'{path}.tmp.{os.getpid()}'
     nvcc = _nvcc()
     t0 = time.perf_counter()
     jobs = []
-    for src in (s for s in _sources() if s.endswith('.cu')):
+    for src in (s for s in _sources(csrc_dir) if s.endswith('.cu')):
         obj = f'{tmp}.{os.path.basename(src)}.o'
         cmd = [nvcc, *NVCC_FLAGS, '-c', src, '-o', obj]
         jobs.append((cmd, obj, subprocess.Popen(

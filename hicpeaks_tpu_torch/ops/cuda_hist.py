@@ -25,11 +25,13 @@ def chunk_hist_torch(oc, cid, S, C):
         .reshape(B * S, C).to(torch.int32)
 
 
-def chunk_hist(oc, cid, S, C):
+def chunk_hist(oc, cid, S, C, lib=None):
     """int32 [B*S, C] histogram of (chunk id, count) over ``B``
     backgrounds in one launch (see :func:`chunk_hist_torch` for the
     layout).  CPU tensors take the plain twin; CUDA tensors launch the
-    kernel or raise."""
+    kernel or raise.  ``lib``: the kernel library to launch from (a
+    :class:`~hicpeaks_tpu_torch.kernels.build.KernelLibrary`; default the
+    package's own build)."""
     if oc.device.type == 'cpu' and cid.device.type == 'cpu':
         return chunk_hist_torch(oc, cid, S, C)
     if oc.device.type != 'cuda' or cid.device != oc.device:
@@ -47,9 +49,11 @@ def chunk_hist(oc, cid, S, C):
     if S < 1 or C < 1:
         raise ValueError(f'chunk_hist: S={S}, C={C}')
     from ..kernels.build import check, load
-    lib = load()
+    lib = lib or load()
     B, n = cid.shape
     hist = torch.zeros((B * S, C), dtype=torch.int32, device=oc.device)
+    if n == 0:
+        return hist
     with torch.cuda.device(oc.device):
         sms = torch.cuda.get_device_properties(oc.device) \
             .multi_processor_count

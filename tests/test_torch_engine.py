@@ -71,6 +71,36 @@ def test_hiccups_chrom_matches_jax_and_oracle(clr, oracle_tables, pw, ww,
     _assert_tables_match(got, oracle_tables[(pw, ww, maxww)], rtol=1e-8)
 
 
+@pytest.fixture(scope='module')
+def deep_clr(tmp_path_factory):
+    """The same synthesis at a depth whose largest count plans the
+    histogram cap 4096 (S = 48 chunk rows), as deeper Hi-C does."""
+    path = tmp_path_factory.mktemp('data') / 'deep.cool'
+    uri, _ = synthetic_cooler(str(path), n_bins=420, res=25000, seed=11,
+                              n_loops=30, depth=250.0)
+    return CoolerLite(uri)
+
+
+@pytest.mark.parametrize('dtype', [np.float64, np.float32])
+@pytest.mark.parametrize('pw,ww,maxww', CONFIGS)
+def test_hiccups_chrom_deep_data_matches_jax(deep_clr, pw, ww, maxww,
+                                             dtype):
+    cfg = HiccupsConfig(pw=pw, ww=ww, maxww=maxww, siglevel=0.05, sumq=0.01,
+                        maxapart=2000000, min_marginal_peaks=2,
+                        min_local_reads=16, only_anchors=False)
+
+    def bands():
+        return bands_from_cooler(deep_clr, '21', cfg.maxapart, cfg.maxww,
+                                 min(ww), dtype=dtype)
+
+    assert tengine._bh_plan(bands().max_count) == 4096
+    want = jengine.hiccups_chrom(bands(), cfg)
+    got = tengine.hiccups_chrom(bands(), cfg, device='cpu')
+    assert len(want) > 0
+    assert list(got) == list(want)
+    _assert_tables_match(got, want, rtol=1e-12)
+
+
 def test_unported_fallbacks_raise(clr):
     """Every case that would take the non-fused fallback ladder raises and
     names the roadmap item; none quietly computes something else."""

@@ -138,6 +138,64 @@ def test_hist_kernel_matches_twin(device, n, S, C, B):
     assert torch.equal(got.cpu(), cuda_hist.chunk_hist_torch(oc, cid, S, C))
 
 
+def _hist_stream(n, S, C, B, seed, skew):
+    """Counts mostly small (geometric) with a uniform tail over [-1, C],
+    ids over [-1, S] with half of them in the trash row 0; ``skew``: 90 %
+    of the pixels in cell (0, 0) of every background and most of the rest
+    in one hot valid cell (3, 1)."""
+    rng = np.random.default_rng(seed)
+    oc = np.where(rng.random(n) < 0.7, rng.geometric(0.3, n) - 1,
+                  rng.integers(-1, C + 1, n))
+    cid = rng.integers(-1, S + 1, (B, n))
+    cid[rng.random((B, n)) < 0.5] = 0
+    if skew:
+        u = rng.random(n)
+        oc[u < 0.9] = 0
+        cid[:, u < 0.9] = 0
+        hot = (u >= 0.9) & (u < 0.99)
+        oc[hot] = 1
+        cid[:, hot] = 3
+    return (torch.from_numpy(oc.astype(np.int32)),
+            torch.from_numpy(cid.astype(np.int32)))
+
+
+@pytest.mark.parametrize('n,S,C,B,skew', [
+    (40000, 64, 908, 1, False),       # S*C*4 = 232,448 B: one shared table
+    (40000, 64, 909, 1, False),       # one column past it
+    (40000, 64, 908, 2, False),
+    (40000, 64, 909, 2, False),
+    (300000, 48, 16385, 2, False),    # o_cap 16384
+    (300000, 56, 131073, 2, False),   # o_cap 131072, the cap
+    (100000, 40, 1025, 4, False),     # the multi-pair plan pw=(1, 2)
+    (100001, 40, 1025, 2, False),     # n % 4 == 1, 2, 3: rows not aligned
+    (100002, 40, 1025, 4, False),
+    (100003, 48, 16385, 2, False),
+    (200000, 40, 1025, 2, True),      # skewed: the trash cell and a hot cell
+    (200003, 48, 16385, 4, True),
+    (0, 40, 1025, 2, False),          # an empty stream
+    (1000, 16, 33, 9, False),         # more backgrounds than one block takes
+    (20000, 128, 4097, 4, False),     # rows that shrink the low table
+    (3000, 15000, 5, 4, False),       # rows too many for any shared table
+])
+def test_hist_kernel_matches_twin_at_edges(device, n, S, C, B, skew):
+    oc, cid = _hist_stream(n, S, C, B, n + S + C + B, skew)
+    launches = cuda_hist.chunk_hist.launches
+    got = cuda_hist.chunk_hist(oc.to(device), cid.to(device), S, C)
+    torch.cuda.synchronize()
+    assert cuda_hist.chunk_hist.launches == launches + (n > 0)
+    assert torch.equal(got.cpu(), cuda_hist.chunk_hist_torch(oc, cid, S, C))
+
+
+def test_hist_kernel_takes_unaligned_views(device):
+    """Rows that start off a 16-byte boundary take the one-pixel loads."""
+    oc, cid = _hist_stream(50001, 40, 1025, 2, 5, False)
+    oc_d, cid_d = oc.to(device), cid.to(device)
+    got = cuda_hist.chunk_hist(oc_d[1:], cid_d[:, 1:].contiguous(), 40, 1025)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), cuda_hist.chunk_hist_torch(
+        oc[1:], cid[:, 1:].contiguous(), 40, 1025))
+
+
 @pytest.mark.parametrize('pw,ww', [((2,), (5,)), ((1, 2), (3, 5))])
 def test_hiccups_chrom_on_card_matches_cpu(device, pw, ww):
     """The main path on the card (kernels) gives the CPU run's table

@@ -137,11 +137,13 @@ def test_compact_mask_batched_matches_jax():
         assert (td[b, n:] == 39).all() and (tx[b, n:] == 96).all()
 
 
-@pytest.mark.parametrize('sig,o_cap', [(0.05, 1024), (0.31, 256)])
+@pytest.mark.parametrize('sig,o_cap', [(0.05, 1024), (0.31, 256),
+                                       (0.05, 4096)])
 def test_chunk_bh_keep_batched_matches_jax(sig, o_cap):
     """B=2 with the same cid/valid given to both: keep, and thr and
     histogram rows >= 1, equal (row 0 is the trash row; JAX's padding
-    lands in its cell (0, 0))."""
+    lands in its cell (0, 0)).  At o_cap 4096 (S = 48, the cap of deeper
+    data) a fifth of the counts spread log-uniformly over the table."""
     rng = np.random.default_rng(23)
     num_p, Lp, B = 30, 300, 2
     O = rng.poisson(6.0, (num_p, Lp)).astype(np.float32)
@@ -149,9 +151,15 @@ def test_chunk_bh_keep_batched_matches_jax(sig, o_cap):
     E = np.exp(rng.uniform(np.log(0.05), np.log(300.0), (B, num_p, Lp))
                ).astype(np.float32)
     scored = rng.random((B, num_p, Lp)) < 0.9
+    if o_cap > 1024:
+        deep = rng.random((num_p, Lp)) < 0.2
+        O[deep] = np.floor(np.exp(rng.uniform(0.0, np.log(o_cap),
+                                              int(deep.sum()))))
     cid, _, valid = jscore.lambda_chunks(jnp.asarray(E), jnp.asarray(scored))
     cid, valid = np.array(cid), np.array(valid)
     S = jscore.chunk_rows(o_cap, sig)
+    if o_cap == 4096:
+        assert S == 48
     Ob = np.broadcast_to(O, (B, num_p, Lp)).copy()
     jk, _, jh, jt, _ = jscore.chunk_bh_keep_batched(
         jnp.asarray(Ob), jnp.asarray(cid), jnp.asarray(valid),
