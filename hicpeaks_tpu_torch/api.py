@@ -63,7 +63,8 @@ def _selected_chroms(clr, chroms):
     return out
 
 
-def _run(kind, cooler_uri, cfg, chroms, device, checkpoint_dir, dtype):
+def _run(kind, cooler_uri, cfg, chroms, device, checkpoint_dir, dtype,
+         scan_backend, bh_backend, check):
     # h5py only where a cooler is read: the engine itself never needs it
     from .io.coolerlite import CoolerLite
 
@@ -120,10 +121,10 @@ def _run(kind, cooler_uri, cfg, chroms, device, checkpoint_dir, dtype):
             attempt = 0
             while True:
                 try:
-                    table = caller(bands, cfg, device)
+                    table = caller(bands, cfg, device,
+                                   scan_backend=scan_backend,
+                                   bh_backend=bh_backend, check=check)
                     break
-                except NotImplementedError:
-                    raise
                 except Exception:
                     attempt += 1
                     if attempt > _MAX_RETRIES:
@@ -152,21 +153,25 @@ def _run(kind, cooler_uri, cfg, chroms, device, checkpoint_dir, dtype):
 
 
 def call_hiccups(cooler_uri, cfg: HiccupsConfig = None, chroms=('#', 'X'), *,
-                 device, checkpoint_dir=None, dtype=np.float32):
+                 device, checkpoint_dir=None, dtype=np.float32,
+                 scan_backend='auto', bh_backend='auto', check=False):
     """-> {chrom_label: {(x_bp, y_bp): 10-tuple}} (see
-    ``engine.hiccups_chrom``), every chromosome on ``device``.
+    ``engine.hiccups_chrom``, whose ``scan_backend``, ``bh_backend`` and
+    ``check`` these are), every chromosome on ``device``.
 
     The JAX API's ``shape_bucket``/``row_bucket``/``max_count_floor`` are
     not ported: they padded shapes so XLA executables could be shared, and
     eager PyTorch compiles nothing."""
     return _run('hiccups', cooler_uri, cfg or HiccupsConfig(), chroms,
-                device, checkpoint_dir, dtype)
+                device, checkpoint_dir, dtype, scan_backend, bh_backend,
+                check)
 
 
 def call_bhfdr(cooler_uri, cfg: BHFDRConfig = None, chroms=('#', 'X'), *,
-               device, checkpoint_dir=None, dtype=np.float32):
+               device, checkpoint_dir=None, dtype=np.float32,
+               scan_backend='auto', bh_backend='auto', check=False):
     """-> {chrom_label: {(x_bp, y_bp): 7-tuple}} (see
     ``engine.bhfdr_chrom``), every chromosome on ``device``; the arguments
     are those of :func:`call_hiccups`."""
     return _run('bhfdr', cooler_uri, cfg or BHFDRConfig(), chroms, device,
-                checkpoint_dir, dtype)
+                checkpoint_dir, dtype, scan_backend, bh_backend, check)

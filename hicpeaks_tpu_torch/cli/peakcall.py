@@ -10,10 +10,13 @@ flags), built from copies of its argument helpers, plus ``--device``
 (default ``cuda``; without CUDA the run fails, it never falls back to the
 CPU).  The output files are the JAX CLIs' byte for byte.
 
-Flags of the JAX CLIs that this engine does not serve fail with
-NotImplementedError naming their ROADMAP.md item: ``--scan-backend
-jnp|pallas-interpret|validate`` and ``--bh-backend host`` (Queue 1 item
-10), ``--checkify`` (item 14) and ``--mesh-devices`` other than 0 (item 13).
+Every flag value of the JAX CLIs is served on one device (the engine's
+routes, ``hicpeaks_tpu_torch.core.engine.resolve_route``) except
+``--mesh-devices`` other than 0, which fails with NotImplementedError
+naming ROADMAP.md, Queue 1 item 13 (multi-GPU).  Every ``--scan-backend``
+runs the CUDA scan kernels on the card (``validate`` also runs their plain
+PyTorch twins and cross-checks them), and ``--checkify`` the port's checks
+(``engine.hiccups_chrom``).
 ``--shape-bucket`` (it shared XLA executables) and ``--nproc`` are accepted
 and have no effect.
 
@@ -27,10 +30,9 @@ import sys
 from .. import __version__
 from ..api import call_bhfdr, call_hiccups
 from ..core.config import BHFDRConfig, HiccupsConfig
+from ..core.engine import MESH_ITEM
 from ..io.peakfile import write_bhfdr_bedpe, write_hiccups_bedpe
 from .common import echo_arguments, setup_logging
-
-_ITEM = 'ROADMAP.md, Queue 1 item {}'
 
 
 def _common_data_args(parser):
@@ -51,8 +53,10 @@ def _engine_args(parser):
     g.add_argument('--scan-backend', default='auto',
                    choices=['auto', 'pallas', 'jnp', 'validate',
                             'pallas-interpret'],
-                   help='Window-capture backend. "validate" runs pallas and '
-                   'jnp and cross-checks them (integrity mode).')
+                   help='Window-capture backend. Every value runs the CUDA '
+                   'scan kernels on the card (the JAX names are accepted); '
+                   '"validate" also runs their plain PyTorch twins and '
+                   'cross-checks them (integrity mode).')
     g.add_argument('--bh-backend', default='auto',
                    choices=['auto', 'host', 'device'],
                    help='Where the Benjamini-Hochberg step runs.')
@@ -60,8 +64,9 @@ def _engine_args(parser):
                    help='Pad chromosome band length to a multiple of this so '
                    'compiled programs are shared across chromosomes.')
     g.add_argument('--checkify', action='store_true',
-                   help='Run the scoring step under jax checkify '
-                   '(NaN/inf/out-of-bounds instrumentation; slower).')
+                   help='Check the sheets, the captures and the scoring '
+                   'step for NaN and the compacted pixels for out-of-band '
+                   'indices (the port of jax checkify; slower).')
     g.add_argument('--watchdog', type=int, default=0, metavar='SECONDS',
                    help='Abort with a logged error if the run exceeds this '
                    'many seconds (0 = off).  Uses SIGALRM + a timer-thread '
@@ -122,24 +127,12 @@ def _add_engine_args(parser):
 
 
 def _refuse_unserved(args):
-    """NotImplementedError for each flag value this engine does not
-    serve, naming the ROADMAP item that would port it."""
-    if args.scan_backend in ('jnp', 'pallas-interpret', 'validate'):
-        raise NotImplementedError(
-            f'--scan-backend {args.scan_backend}: this engine runs the CUDA '
-            'scan kernels only ("auto" or "pallas"); the plain scans and '
-            'the validating ladder belong to the non-fused path, '
-            + _ITEM.format(10))
-    if args.bh_backend == 'host':
-        raise NotImplementedError(
-            '--bh-backend host: the dense host BH scorer is part of the '
-            'non-fused path, ' + _ITEM.format(10))
-    if args.checkify:
-        raise NotImplementedError('--checkify: ' + _ITEM.format(14))
+    """NotImplementedError for ``--mesh-devices`` other than 0, the one
+    flag value this engine does not serve, naming its ROADMAP item."""
     if args.mesh_devices:
         raise NotImplementedError(
             f'--mesh-devices {args.mesh_devices}: multi-GPU runs are '
-            + _ITEM.format(13))
+            + MESH_ITEM)
 
 
 def _run(parser, args, logger, call, cfg, writer):
@@ -156,7 +149,9 @@ def _run(parser, args, logger, call, cfg, writer):
     res = CoolerLite(args.path).binsize
     logger.info('Calling Peaks ...')
     results = call(args.path, cfg, chroms=args.chroms, device=args.device,
-                   checkpoint_dir=args.checkpoint_dir)
+                   checkpoint_dir=args.checkpoint_dir,
+                   scan_backend=args.scan_backend,
+                   bh_backend=args.bh_backend, check=args.checkify)
     with open(args.output, 'w') as out:
         for label, table in results.items():
             writer(out, label, res, table)

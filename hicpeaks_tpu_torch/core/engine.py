@@ -1,37 +1,48 @@
 """Per-chromosome pyHICCUPS and pyBHFDR engines on one device (PyTorch).
 
-Port of the fused paths of ``hicpeaks_tpu/core/engine.py``:
+Port of ``hicpeaks_tpu/core/engine.py`` on one device: the fused route and
+the fallback ladder, with the routes chosen by :func:`resolve_route`.
+Every route runs the same front (:func:`_scan_front`): the sheets, pass A
+(CUDA kernel), the freeze gate, pass B (CUDA kernel).  The routes differ
+in where the gate is computed and in the scorer:
 
-* ``hiccups_chrom`` -> ``_hiccups_fused`` -> ``_fused_hiccups_device``:
-  the sheets, pass A (CUDA kernel), the freeze gate, pass B (CUDA kernel)
-  and the batched scorer with its (chunk, count) histogram (CUDA kernel)
-  and keep-mask compaction;
-* ``bhfdr_chrom`` -> ``_bhfdr_fused`` -> ``_fused_bhfdr_device``: the
-  sheets, pass A, the pyBHFDR freeze gate (plain break), pass B and the
-  sort-free global-BH keep superset with its compaction.
+* **fused** (``hicpeaks_tpu``'s ``_fused_*_device``): the integer-exact
+  gate on the device, then the batched pyHICCUPS scorer with its (chunk,
+  count) histogram (CUDA kernel), or the pyBHFDR global-BH scorer;
+* **host gate** (``engine.py:1409-1418,1520-1530``): pass A's counts
+  replayed on the host in Python integers (a candidate total whose
+  ``10 * total`` reaches :data:`_GATE_LIMIT` overflows the device gate's
+  int32, and ``scan_backend='validate'`` takes this route); the scorers
+  are the fused route's;
+* **per-background scorer** (:func:`_score_one`, ``engine.py:1165-1259``):
+  the histogram scorer for one background, device segmented BH for counts
+  above the histogram's cap, or the dense scorer with float64 BH on the
+  host (``bh_backend='host'``, and the one background whose suspect audit
+  fails);
+* **checkify** (``check=True``): the per-background scorer with the
+  checks of :func:`_check_finite` and :func:`_check_in_band`.
 
-On the host: the float64 completion of the compacted pixels
+On the host: the freeze replay, the float64 completion
 (:mod:`.hostcomplete`), the fold gates, the cross-pair merge and the
-clustering (:mod:`.clustering`).
-
-The non-fused fallback ladder is not ported (ROADMAP.md, Queue 1 item 10).
-Every case that would take it raises NotImplementedError naming that item:
-a candidate total too large for the int32 freeze gate, a count above the
-histogram cap, a failed suspect audit, a device mesh, and checkify.
+clustering (:mod:`.clustering`).  A device mesh is not ported
+(ROADMAP.md, Queue 1 item 13): ``mesh`` raises NotImplementedError.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..ops import cuda_scan
+from ..ops import scan as scan_ops
 from ..ops import score as score_ops
 from ..ops.band import ChromBands
 from ..ops.hostexact import ExactCtx
 from . import poolplan
 from .clustering import local_clustering
 from .config import BHFDRConfig, HiccupsConfig
-from .hostcomplete import FALLBACK_ITEM, _bhfdr_to_host, _compact_to_host
+from .hostcomplete import _bhfdr_to_host, _compact_to_host, _dense_to_host
 
 _BH_SLACK = 0.01   # chunk_bh_keep superset inflation: covers the f32 qtab's
                    # gammainc error near q ~ sig, so the device keep mask is
@@ -39,8 +50,15 @@ _BH_SLACK = 0.01   # chunk_bh_keep superset inflation: covers the f32 qtab's
 
 _MAX_O_CAP = 1 << 17   # the histogram-BH count cap (engine._bh_plan)
 
+_GATE_LIMIT = 1 << 31   # the device freeze gate compares 10 * total in int32
+
 _BHFDR_THR = 16   # pyBHFDR's fixed local-reads freeze threshold
                   # (callers.py:505); BHFDRConfig has no such field
+
+SCAN_BACKENDS = ('auto', 'pallas', 'jnp', 'validate', 'pallas-interpret')
+BH_BACKENDS = ('auto', 'host', 'device')
+
+MESH_ITEM = 'ROADMAP.md, Queue 1 item 13'
 
 
 def resolve_device(device):
@@ -53,16 +71,9 @@ def resolve_device(device):
     return device
 
 
-def _refuse_unported(mesh, check, total):
-    """NotImplementedError for the cases that need the non-fused ladder."""
-    if mesh is not None or check:
-        raise NotImplementedError(
-            'mesh runs and checkify instrumentation take the non-fused '
-            f'path; {FALLBACK_ITEM}')
-    if 10 * total >= (1 << 31):
-        raise NotImplementedError(
-            f'{total} candidate pixels overflow the int32 freeze gate; the '
-            f'host freeze replay it needs is part of {FALLBACK_ITEM}')
+def _refuse_mesh(mesh):
+    if mesh is not None:
+        raise NotImplementedError(f'multi-GPU (mesh) runs are {MESH_ITEM}')
 
 
 def bands_to_device(bands: ChromBands, device):
@@ -84,16 +95,165 @@ def _chunk_margin(plan):
 
 
 def _bh_plan(max_count):
-    """The histogram-BH count cap ``o_cap``: a power of two >= 1024 and >=
-    the chromosome's max count."""
+    """The histogram-BH count cap ``o_cap``, a power of two >= 1024 and >=
+    the chromosome's max count, or None above :data:`_MAX_O_CAP` (the
+    chunked scorer then takes segmented BH)."""
     if max_count > _MAX_O_CAP:
-        raise NotImplementedError(
-            f'max count {max_count} exceeds the histogram cap {_MAX_O_CAP};'
-            f' the host BH scorer it needs is part of {FALLBACK_ITEM}')
+        return None
     o_cap = 1024
     while o_cap < int(max_count):
         o_cap *= 2
     return o_cap
+
+
+class Route(NamedTuple):
+    """One chromosome's route through the engine (:func:`resolve_route`)."""
+    scan: str          # 'kernel' or 'validate'
+    device_gate: bool  # the fused route: the freeze gate on the device
+    batched: bool      # the fused route's scorer serves every background
+    bh: str            # 'device' or 'host'
+    o_cap: object      # histogram count cap; None: no histogram BH
+    check: bool        # checkify: the per-background scorer with checks
+
+
+def resolve_route(scan_backend, bh_backend, check, total, max_count=None):
+    """The route of ``hicpeaks_tpu``'s ``_resolve_scan_impl`` and
+    ``_bh_plan`` (``engine.py:609-625,900-925``) as JAX takes it on a
+    backend that is not a TPU.  ``max_count`` is None for pyBHFDR, whose
+    global BH has no count cap.
+
+    * ``scan_backend`` 'auto', 'pallas', 'jnp' and 'pallas-interpret'
+      run the scan kernels' wrappers (``ops/cuda_scan.py``): the CUDA
+      kernels on the card, the plain twins only for CPU tensors.  JAX's
+      'jnp' names its plain path because JAX off a TPU has no other; the
+      port has its kernels, and they are bit-equal to the twins.
+      'validate' runs kernel and twin on the same inputs, asserts that
+      they are bit-equal, and takes the host-gate route.
+    * ``bh_backend`` 'auto' is 'device': histogram BH up to the count cap,
+      device segmented BH above it (pyHICCUPS), the sort-free global BH
+      (pyBHFDR); 'host' is the dense scorer with float64 BH on the host.
+    * ``check`` takes the per-background scorer with device BH.
+    * A candidate total with ``10 * total >= _GATE_LIMIT`` takes the
+      host gate."""
+    if scan_backend not in SCAN_BACKENDS:
+        raise ValueError(f'scan_backend {scan_backend!r} not in '
+                         f'{SCAN_BACKENDS}')
+    if bh_backend not in BH_BACKENDS:
+        raise ValueError(f'bh_backend {bh_backend!r} not in {BH_BACKENDS}')
+    scan = 'validate' if scan_backend == 'validate' else 'kernel'
+    bh = 'host' if bh_backend == 'host' else 'device'
+    o_cap = None
+    if max_count is not None and bh == 'device':
+        o_cap = _bh_plan(max_count)
+    batched = (not check and bh == 'device'
+               and (max_count is None or o_cap is not None))
+    device_gate = (batched and scan != 'validate'
+                   and 10 * total < _GATE_LIMIT)
+    return Route(scan, device_gate, batched, bh, o_cap, bool(check))
+
+
+def _validated(kernel, twin, name):
+    """``kernel`` and ``twin`` on the same inputs, asserted bit-equal
+    (``engine.py:1295-1302,1325-1345``); returns the kernel's result."""
+    def run(*args):
+        a, b = kernel(*args), twin(*args)
+        pairs = ([(a, b, '')] if isinstance(a, torch.Tensor) else
+                 [(a[p][t], b[p][t], f' p={p} {n}') for p in a
+                  for t, n in enumerate(('KS', 'KE', 'YS', 'YE'))])
+        for x, y, what in pairs:
+            if not torch.equal(x, y):
+                raise AssertionError(f'{name} backend mismatch{what}')
+        return a
+    return run
+
+
+def _scan_calls(scan):
+    """(pass A, pass B) of a route's ``scan``; pass B returns {p: [KS, KE,
+    YS, YE]}."""
+    def twin_b(*a):
+        return scan_ops.scan_pass_b(*a)[2]
+    if scan == 'validate':
+        return (_validated(cuda_scan.scan_pass_a, scan_ops.scan_pass_a,
+                           'pass A'),
+                _validated(cuda_scan.scan_pass_b, twin_b, 'pass B'))
+    return cuda_scan.scan_pass_a, cuda_scan.scan_pass_b
+
+
+def _check_finite(**named):
+    """checkify's float checks, at the port's stage boundaries: raise
+    FloatingPointError naming the first tensor that holds a NaN and its
+    first NaN's index."""
+    for name, t in named.items():
+        bad = torch.isnan(t)
+        if bool(bad.any()):
+            at = tuple(torch.nonzero(bad)[0].tolist())
+            raise FloatingPointError(f'checkify: NaN in {name} at {at}')
+
+
+def _check_in_band(cnt, d_idx, x_idx, num_p, L):
+    """checkify's index checks on the compaction: every compacted (d, x)
+    of each background's first ``cnt`` entries lies inside the band (d <
+    num_p and x + d < L); raise IndexError naming the first that does
+    not."""
+    for b in range(d_idx.shape[0]):
+        n = int(cnt[b])
+        d, x = d_idx[b, :n].to(torch.int64), x_idx[b, :n].to(torch.int64)
+        bad = (d < 0) | (d >= num_p) | (x < 0) | (x + d >= L)
+        if bool(bad.any()):
+            k = int(torch.nonzero(bad)[0])
+            raise IndexError(f'checkify: compacted pixel (d, x) = '
+                             f'({int(d[k])}, {int(x[k])}) of background {b} '
+                             f'lies outside the band of {num_p} diagonals '
+                             f'and length {L}')
+
+
+class Sheets(NamedTuple):
+    """The device sheets of one chromosome (``score_ops.build_sheets``)."""
+    raw: torch.Tensor
+    cband: torch.Tensor
+    eband: torch.Tensor
+    IR: torch.Tensor
+    Bprod: torch.Tensor
+    gap_drop: torch.Tensor
+    cand: torch.Tensor
+    L: int
+
+
+def _scan_front(ops, bands, plan, p_list, thr, d_lo, d_hi, gap_s, route,
+                replay, device_gate):
+    """The front every route shares: the sheets, pass A, the freeze gate,
+    pass B.  The gate is ``device_gate`` (pass A's counts -> the device
+    bool [n_entries] ``allowed``) on the fused route; elsewhere the counts
+    are fetched and ``replay``ed on the host in Python integers (counts ->
+    FreezeDecision) and the decision is sent back.  The device gate is
+    held to the host replay.  Returns (sheets, {p: [KS, KE, YS, YE]},
+    FreezeDecision)."""
+    L = int(bands.L)
+    raw, cband, eband, Bprod, gap_drop, cand = score_ops.build_sheets(
+        ops['raw'], ops['w0'], ops['bias'], ops['IR'], ops['gap'],
+        bands.ww_min, L, d_lo, d_hi, gap_s)
+    sh = Sheets(raw, cband, eband, ops['IR'], Bprod, gap_drop, cand, L)
+    if route.check:
+        _check_finite(raw=raw, cband=cband, eband=eband, Bprod=Bprod)
+    pass_a, pass_b = _scan_calls(route.scan)
+    counts = pass_a(raw, cand, plan, p_list, thr)
+    if route.device_gate:
+        allowed = device_gate(counts)
+    else:
+        decision = replay(counts.cpu().numpy())
+        allowed = torch.tensor(decision.allowed, dtype=torch.bool,
+                               device=raw.device)
+    outs = pass_b(raw, cband, eband, cand, allowed, plan, p_list, thr)
+    if route.check:
+        _check_finite(**{f'pass B {n} (p={p})': v for p, o in outs.items()
+                         for n, v in zip(('KS', 'KE', 'YS', 'YE'), o)})
+    if route.device_gate:
+        counts_h, allowed_h = _to_host((counts, allowed))
+        decision = replay(counts_h)
+        if not np.array_equal(allowed_h, np.asarray(decision.allowed)):
+            raise AssertionError(
+                'device freeze emulation diverged from the host replay')
+    return sh, outs, decision
 
 
 def _exact_capable(bands):
@@ -122,11 +282,11 @@ def _gather_flat_shared(a, d, x):
     return a.reshape(-1)[d.to(torch.int64) * a.shape[1] + x]
 
 
-def _compact_batched(raw, cband, IR, Bprod, BSV, BEV, wis_t, cand, gap_drop,
-                     sig, L, o_cap, exact_mode, margin, s_rows):
-    """All B backgrounds (every (p, w) pair x {K, Y}) scored in one
-    batched body: expected values, lambda chunks, histogram BH keep mask
-    (one histogram launch for all B), gap filter and compaction.
+def _compact_batched(sh, BSV, BEV, wis_t, sig, o_cap, exact_mode, margin,
+                     s_rows, check=False):
+    """All B backgrounds (every (p, w) pair x {K, Y}, or one) scored in
+    one batched body: expected values, lambda chunks, histogram BH keep
+    mask (one histogram launch for all B), gap filter and compaction.
 
     Returns the 10-slot bundle with a leading [B] axis: (cnt, d, x, O, ICE,
     Fold, cid, hist [B, S, C], prod [B, num_p, Lp], suspects) with the
@@ -134,14 +294,16 @@ def _compact_batched(raw, cband, IR, Bprod, BSV, BEV, wis_t, cand, gap_drop,
     ``exact_mode``."""
     wi_b = wis_t[:, None, None]
     E, O, ICE, Fold, scored, prod = score_ops.expected_observed(
-        raw, cband, IR, Bprod, BSV, BEV, wi_b, cand, L)
+        sh.raw, sh.cband, sh.IR, sh.Bprod, BSV, BEV, wi_b, sh.cand, sh.L)
+    if check:
+        _check_finite(E=E, O=O, ICE=ICE, Fold=Fold)
     B = E.shape[0]
     cid, _rv, valid = score_ops.lambda_chunks(E, scored)
     keep_q, _qtab, hist, thr2 = score_ops.chunk_bh_keep_batched(
         O, cid, valid, sig, B, n_chunks=s_rows, o_cap=o_cap,
         slack=_BH_SLACK)
     hist_b = hist.reshape(B, s_rows, o_cap + 1)
-    keep = scored & keep_q & ~gap_drop
+    keep = scored & keep_q & ~sh.gap_drop
     sus_bundle = ()
     gb = _gather_flat_b
     gu = _gather_flat_shared
@@ -152,51 +314,17 @@ def _compact_batched(raw, cband, IR, Bprod, BSV, BEV, wis_t, cand, gap_drop,
         cid_s = torch.where(gb(valid, d_s, x_s), gb(cid, d_s, x_s), 0)
         O_s = torch.clamp(torch.floor(gu(O, d_s, x_s)), 0, o_cap) \
             .to(torch.int32)
-        sus_bundle = (cnt_s, d_s, x_s, cid_s, O_s, gu(gap_drop, d_s, x_s),
+        sus_bundle = (cnt_s, d_s, x_s, cid_s, O_s, gu(sh.gap_drop, d_s, x_s),
                       thr2)
     cnt, d_idx, x_idx = score_ops.compact_mask_batched(keep)
+    if check:
+        _check_in_band(cnt, d_idx, x_idx, O.shape[0], sh.L)
     cid_g = torch.where(gb(valid, d_idx, x_idx), gb(cid, d_idx, x_idx), 0)
     return (cnt, d_idx, x_idx, gu(O, d_idx, x_idx), gu(ICE, d_idx, x_idx),
             gb(Fold, d_idx, x_idx), cid_g, hist_b, prod, sus_bundle)
 
 
-def _bundle_slice(out, lo, hi):
-    """Every leaf of a batched bundle along its leading axis."""
-    head = tuple(a[lo:hi] for a in out[:9])
-    sus = tuple(a[lo:hi] for a in out[9]) if out[9] else ()
-    return head + (sus,)
-
-
-def _fused_hiccups_device(raw, w0, bias, IR, gap, sig, total, t_left,
-                          plan, p_list, thr, ww_t, wis, ww_min, L, d_lo,
-                          d_hi, gap_s, o_cap, exact_mode, margin, s_rows):
-    """The per-chromosome device pipeline: sheets, pass A, the freeze gate
-    (integer-exact, so it equals the host replay), pass B and the batched
-    scorer.  ``wis`` is the ((p, w), ...) pair list.  Returns (counts,
-    allowed, outK, outY), each bundle with a leading n_pairs axis."""
-    raw, cband, eband, Bprod, gap_drop, cand = score_ops.build_sheets(
-        raw, w0, bias, IR, gap, ww_min, L, d_lo, d_hi, gap_s)
-    counts = cuda_scan.scan_pass_a(raw, cand, plan, p_list, thr)
-    allowed = poolplan.device_allowed_hiccups(counts, total, t_left, plan,
-                                              ww_t)
-    outs = cuda_scan.scan_pass_b(raw, cband, eband, cand, allowed, plan,
-                                 p_list, thr)
-    n = len(wis)
-    BSV = torch.stack([outs[p][0] for p, _ in wis]
-                      + [outs[p][2] for p, _ in wis])
-    BEV = torch.stack([outs[p][1] for p, _ in wis]
-                      + [outs[p][3] for p, _ in wis])
-    wis_t = torch.tensor([w for _, w in wis] * 2, dtype=torch.int32,
-                         device=raw.device)
-    out = _compact_batched(raw, cband, IR, Bprod, BSV, BEV, wis_t, cand,
-                           gap_drop, sig, L, o_cap, exact_mode, margin,
-                           s_rows)
-    return counts, allowed, _bundle_slice(out, 0, n), \
-        _bundle_slice(out, n, 2 * n)
-
-
-def _score_device_bhfdr_compact(raw, cband, IR, Bprod, bSV, bEV, cand,
-                                gap_drop, sig, wi, L):
+def _score_device_bhfdr_compact(sh, bSV, bEV, sig, wi, check=False):
     """Global-BH scoring of the donut background: p-values, the sort-free
     keep superset (``score_ops.global_bh_keep``) and its row-major
     compaction.  Gap pixels stay in the superset: the gap filter comes
@@ -205,30 +333,90 @@ def _score_device_bhfdr_compact(raw, cband, IR, Bprod, bSV, bEV, cand,
     Returns the 11-slot bundle (cnt, d, x, O, ICE, Fold, p, E, m, gap,
     prod)."""
     E, O, ICE, Fold, scored, prod = score_ops.expected_observed(
-        raw, cband, IR, Bprod, bSV, bEV, wi, cand, L)
+        sh.raw, sh.cband, sh.IR, sh.Bprod, bSV, bEV, wi, sh.cand, sh.L)
     pval = torch.where(scored, score_ops.poisson_sf(O, E), 1.0)
+    if check:
+        _check_finite(E=E, O=O, ICE=ICE, Fold=Fold, p=pval)
     keep_sup, m, _ = score_ops.global_bh_keep(pval, scored, sig)
     cnt, d_idx, x_idx = score_ops.compact_mask(keep_sup)
+    if check:
+        _check_in_band(cnt[None], d_idx[None], x_idx[None], O.shape[0],
+                       sh.L)
     small = [_gather_flat_shared(a, d_idx, x_idx)
-             for a in (O, ICE, Fold, pval, E, gap_drop)]
+             for a in (O, ICE, Fold, pval, E, sh.gap_drop)]
     return (cnt, d_idx, x_idx, *small[:5], m, small[5], prod)
 
 
-def _fused_bhfdr_device(raw, w0, bias, IR, gap, sig, total, t_left, plan,
-                        p_list, thr, wi, ww_min, L, d_lo, d_hi, gap_s):
-    """The per-chromosome pyBHFDR device pipeline: sheets, pass A, the
-    plain-break freeze gate, pass B and the global-BH scorer of the donut
-    background.  Returns (counts, allowed, bundle)."""
-    raw, cband, eband, Bprod, gap_drop, cand = score_ops.build_sheets(
-        raw, w0, bias, IR, gap, ww_min, L, d_lo, d_hi, gap_s)
-    counts = cuda_scan.scan_pass_a(raw, cand, plan, p_list, thr)
-    allowed = poolplan.device_allowed_bhfdr(counts, total, t_left, plan)
-    outs = cuda_scan.scan_pass_b(raw, cband, eband, cand, allowed, plan,
-                                 p_list, thr)
-    KS, KE, _, _ = outs[p_list[0]]
-    out = _score_device_bhfdr_compact(raw, cband, IR, Bprod, KS, KE, cand,
-                                      gap_drop, sig, wi, L)
-    return counts, allowed, out
+def _score_device_segmented(sh, bSV, bEV, sig, wi, check=False):
+    """The chunked scorer without a count cap (``_compact_one`` with
+    ``o_cap`` None): lambda chunks, device p at each chunk's right edge,
+    segmented BH by a sort, the gap filter and the row-major compaction.
+    Returns the 8-slot bundle (cnt, d, x, O, ICE, Fold, p, q) and prod."""
+    E, O, ICE, Fold, scored, prod = score_ops.expected_observed(
+        sh.raw, sh.cband, sh.IR, sh.Bprod, bSV, bEV, wi, sh.cand, sh.L)
+    cid, rv, valid = score_ops.lambda_chunks(E, scored)
+    # JAX's right edge is weakly typed, so its p takes O's float32 whatever
+    # the bands' dtype: p and q are float32 igamma values, and XLA flushes
+    # float32 subnormals to zero
+    pval = score_ops.poisson_sf(O, rv.to(O.dtype))
+    pval = torch.where(valid & (pval >= torch.finfo(pval.dtype).tiny), pval,
+                       torch.where(valid, 0.0, 1.0))
+    qval = score_ops.segmented_bh(pval, cid, valid)
+    if check:
+        _check_finite(E=E, O=O, ICE=ICE, Fold=Fold, p=pval, q=qval)
+    keep = scored & (qval <= sig) & ~sh.gap_drop
+    cnt, d_idx, x_idx = score_ops.compact_mask(keep)
+    if check:
+        _check_in_band(cnt[None], d_idx[None], x_idx[None], O.shape[0],
+                       sh.L)
+    small = tuple(_gather_flat_shared(a, d_idx, x_idx)
+                  for a in (O, ICE, Fold, pval, qval))
+    return (cnt, d_idx, x_idx) + small, prod
+
+
+def _score_dense(sh, bSV, bEV, sig, wi, chunked):
+    """The dense scorer (``_score_device`` with ``with_bh=False`` and the
+    host branches of ``_score_one``): every valid pixel of the background
+    fetched in row-major order, float64 BH on the host
+    (``hostcomplete._dense_to_host``)."""
+    E, O, ICE, Fold, scored, prod = score_ops.expected_observed(
+        sh.raw, sh.cband, sh.IR, sh.Bprod, bSV, bEV, wi, sh.cand, sh.L)
+    if chunked:
+        cid, _rv, valid = score_ops.lambda_chunks(E, scored)
+    else:
+        cid, valid = torch.ones_like(scored, dtype=torch.int32), scored
+    _, d_idx, x_idx = score_ops.compact_mask(valid)
+    fetched = _to_host((d_idx, x_idx) + tuple(
+        _gather_flat_shared(a, d_idx, x_idx)
+        for a in (O, ICE, Fold, cid, E, sh.gap_drop)))
+    return _dense_to_host(fetched, prod, sig, chunked)
+
+
+def _score_one(sh, bSV, bEV, wi, sig, route, chunked, exact=None):
+    """One background through the per-background scorer
+    (``engine.py:1165-1259``); returns its host dict.  Device BH first
+    (checkify forces it): global BH (pyBHFDR), segmented BH without a
+    count cap, or histogram BH at B = 1 (checkify's pyHICCUPS scorer,
+    exact completion without the suspect bundle, so no audit); the dense
+    host scorer for ``bh='host'``."""
+    if route.check or route.bh == 'device':
+        if not chunked:
+            out = _score_device_bhfdr_compact(sh, bSV, bEV, sig, wi,
+                                              route.check)
+            return _bhfdr_to_host(_to_host(out[:10]), out[10], sig,
+                                  exact=exact)
+        if route.o_cap is None:
+            out, prod = _score_device_segmented(sh, bSV, bEV, sig, wi,
+                                                route.check)
+            return _compact_to_host(_to_host(out), prod, None)
+        wis_t = torch.tensor([wi], dtype=torch.int32, device=sh.raw.device)
+        out = _compact_batched(
+            sh, bSV[None], bEV[None], wis_t, sig, route.o_cap,
+            exact_mode=False, margin=0.0,
+            s_rows=score_ops.chunk_rows(route.o_cap, sig), check=route.check)
+        fetched = _to_host(tuple(a[0] for a in out[:8]))
+        return _compact_to_host(fetched, (out[8], 0), sig, exact=exact)
+    return _score_dense(sh, bSV, bEV, sig, wi, chunked)
 
 
 def _to_host(tree):
@@ -238,53 +426,93 @@ def _to_host(tree):
     return tree.cpu().numpy()
 
 
-def _hiccups_fused(bands: ChromBands, cfg: HiccupsConfig, plan, p_list,
-                   pairs, total, o_cap, device):
-    """One chromosome through the device pipeline and one fetch of the
-    compacted bundles, completed to per-pair (rK, rY) host dicts."""
-    ops = bands_to_device(bands, device)
-    exact_mode = _exact_capable(bands)
-    counts, allowed_d, outK, outY = _fused_hiccups_device(
-        ops['raw'], ops['w0'], ops['bias'], ops['IR'], ops['gap'],
-        cfg.siglevel, total, poolplan.left_threshold(total),
-        plan=plan, p_list=p_list, thr=cfg.min_local_reads,
-        ww_t=tuple(cfg.ww), wis=tuple((int(p), int(w)) for p, w in pairs),
-        ww_min=bands.ww_min, L=int(bands.L), d_lo=min(cfg.ww),
-        d_hi=cfg.maxapart // bands.res, gap_s=min(cfg.ww), o_cap=o_cap,
-        exact_mode=exact_mode, margin=_chunk_margin(plan),
-        s_rows=score_ops.chunk_rows(o_cap, cfg.siglevel))
-    counts_h, allowed_h, fK_all, sK, fY_all, sY = _to_host(
-        (counts, allowed_d, outK[:8], outK[9], outY[:8], outY[9]))
-    decision = poolplan.emulate_freeze_hiccups(plan, counts_h, total,
-                                               cfg.ww)
-    if not np.array_equal(allowed_h, np.asarray(decision.allowed)):
-        raise AssertionError(
-            'device freeze emulation diverged from the host replay')
+def _hiccups_scored(bands: ChromBands, cfg: HiccupsConfig, plan, p_list,
+                    pairs, total, route, device):
+    """One chromosome through its route, completed to per-pair (rK, rY)
+    host dicts: the front, then the batched scorer where the route takes
+    it, and :func:`_score_dense` for each background whose suspect audit
+    fails there; off the batched route, :func:`_score_one` for every
+    background."""
+    ww = tuple(cfg.ww)
+    t_left = poolplan.left_threshold(total)
+    sh, outs, decision = _scan_front(
+        bands_to_device(bands, device), bands, plan, p_list,
+        cfg.min_local_reads, min(ww), cfg.maxapart // bands.res, min(ww),
+        route,
+        lambda c: poolplan.emulate_freeze_hiccups(plan, c, total, ww),
+        lambda c: poolplan.device_allowed_hiccups(c, total, t_left, plan, ww))
     ctx = _exact_ctx(bands, plan, decision.allowed, cfg.min_local_reads)
-    results = []
-    for i, (pi, _) in enumerate(pairs):
-        rK = _compact_to_host(tuple(l[i] for l in fK_all), (outK[8], i),
-                              sig=cfg.siglevel,
-                              exact=ctx and (ctx, pi, 'K'),
-                              sus=tuple(l[i] for l in sK) if sK else None)
-        rY = _compact_to_host(tuple(l[i] for l in fY_all), (outY[8], i),
-                              sig=cfg.siglevel,
-                              exact=ctx and (ctx, pi, 'Y'),
-                              sus=tuple(l[i] for l in sY) if sY else None)
-        results.append((rK, rY))
-    return results
+    margin = _chunk_margin(plan)
+    # background b: pair b % n, donut 'K' (captures 0, 1) for b < n, else
+    # lower-left 'Y' (captures 2, 3)
+    n = len(pairs)
+    bgs = [(int(p), int(w), k, t) for k, t in (('K', 0), ('Y', 2))
+           for p, w in pairs]
+    res = [None] * (2 * n)
+    if route.batched:
+        BSV = torch.stack([outs[p][t] for p, _, _, t in bgs])
+        BEV = torch.stack([outs[p][t + 1] for p, _, _, t in bgs])
+        wis_t = torch.tensor([w for _, w, _, _ in bgs], dtype=torch.int32,
+                             device=sh.raw.device)
+        out = _compact_batched(
+            sh, BSV, BEV, wis_t, cfg.siglevel, route.o_cap,
+            exact_mode=ctx is not None, margin=margin,
+            s_rows=score_ops.chunk_rows(route.o_cap, cfg.siglevel))
+        fetched, sus = _to_host((out[:8], out[9]))
+        for b, (p, _, kind, _) in enumerate(bgs):
+            res[b] = _compact_to_host(
+                tuple(a[b] for a in fetched), (out[8], b), cfg.siglevel,
+                exact=ctx and (ctx, p, kind),
+                sus=tuple(a[b] for a in sus) if sus else None)
+    for b, (p, w, kind, t) in enumerate(bgs):
+        if res[b] is not None:
+            continue
+        if route.batched:
+            # the batched audit failed: a histogram scorer at B = 1 would
+            # repeat it, so this background goes straight to the dense one
+            res[b] = _score_dense(sh, outs[p][t], outs[p][t + 1],
+                                  cfg.siglevel, w, chunked=True)
+        else:
+            res[b] = _score_one(sh, outs[p][t], outs[p][t + 1], w,
+                                cfg.siglevel, route, chunked=True,
+                                exact=ctx and (ctx, p, kind))
+    return [(res[i], res[n + i]) for i in range(n)]
+
+
+def _gather_prod(prod, pixels):
+    """Postcheck values at (x, y) ``pixels`` of a ``prod`` handle: a
+    (stacked [B, num_p, Lp], b) pair from a batched scorer or a plain
+    [num_p, Lp] sheet (``engine.py:799-805``), as numpy."""
+    stacked, i = prod if isinstance(prod, tuple) else (prod[None], 0)
+    di = torch.tensor([y - x for x, y in pixels], dtype=torch.int64,
+                      device=stacked.device)
+    xi = torch.tensor([x for x, _ in pixels], dtype=torch.int64,
+                      device=stacked.device)
+    return stacked[i, di, xi].cpu().numpy()
 
 
 def hiccups_chrom(bands: ChromBands, cfg: HiccupsConfig, device,
-                  mesh=None, check=False):
+                  mesh=None, scan_backend='auto', bh_backend='auto',
+                  check=False):
     """Two-background multi-parameter caller (reference callers.py:44-362)
     on one ``device``.  Returns {(x_bp, y_bp): (cen_x, cen_y, radius, O,
     FoldK, pK, qK, FoldY, pY, qY)} in bp, the table of
-    ``hicpeaks_tpu.core.engine.hiccups_chrom``.
+    ``hicpeaks_tpu.core.engine.hiccups_chrom`` with the same
+    ``scan_backend``, ``bh_backend`` and ``check`` (:func:`resolve_route`).
+
+    ``check=True`` is the port's form of JAX's checkify: it raises
+    FloatingPointError on a NaN in the sheets, in pass B's captures or in
+    the scorer's E, O, ICE, Fold and p (and q), and IndexError on a
+    compacted pixel outside the band.  checkify instrumented every float
+    operation (NaN production, division by zero) and every gather; the
+    port checks the named tensors at stage boundaries and the compacted
+    indices, not each operation, and no division by zero that yields a
+    finite result.
 
     On a CUDA device the bands must be float32 (the kernels take float32
     sheets and raise otherwise); on the CPU float64 bands compute what the
     JAX engine computes under x64."""
+    _refuse_mesh(mesh)
     device = resolve_device(device)
     res = bands.res
     pw, ww = tuple(cfg.pw), tuple(cfg.ww)
@@ -292,13 +520,12 @@ def hiccups_chrom(bands: ChromBands, cfg: HiccupsConfig, device,
     p_list = tuple(sorted(set(pw)))
     total = bands.candidate_total(min(ww), cfg.maxapart // res)
     pairs = list(zip(pw, ww))
-    _refuse_unported(mesh, check, total)
     max_count = getattr(bands, 'max_count', None)
     if max_count is None:
         max_count = float(bands.raw.max())
-    o_cap = _bh_plan(max_count)
-    results = _hiccups_fused(bands, cfg, plan, p_list, pairs, total, o_cap,
-                             device)
+    route = resolve_route(scan_backend, bh_backend, check, total, max_count)
+    results = _hiccups_scored(bands, cfg, plan, p_list, pairs, total, route,
+                              device)
 
     pixel_table = {}
     for pair_idx, (pi, wi) in enumerate(pairs):
@@ -321,12 +548,7 @@ def hiccups_chrom(bands: ChromBands, cfg: HiccupsConfig, device,
             # reuses the loop variable, callers.py:329-331); it stays on the
             # device and only the postcheck entries are gathered
             pc = list(postcheck)
-            stacked, i = rY['prod']
-            di = torch.tensor([cj - ci for ci, cj in pc], dtype=torch.int64,
-                              device=stacked.device)
-            xi = torch.tensor([ci for ci, _ in pc], dtype=torch.int64,
-                              device=stacked.device)
-            vals = stacked[i, di, xi].cpu().numpy()
+            vals = _gather_prod(rY['prod'], pc)
             for (ci, cj), v in zip(pc, vals):
                 if v == 0:
                     commonPos.add((ci, cj))
@@ -358,40 +580,29 @@ def hiccups_chrom(bands: ChromBands, cfg: HiccupsConfig, device,
     return final_table
 
 
-def _bhfdr_fused(bands: ChromBands, cfg: BHFDRConfig, plan, total, device):
-    """One chromosome through the pyBHFDR device pipeline and one fetch of
-    the compacted bundle, completed to the host dict of its significant
-    pixels."""
-    ops = bands_to_device(bands, device)
-    counts, allowed_d, out = _fused_bhfdr_device(
-        ops['raw'], ops['w0'], ops['bias'], ops['IR'], ops['gap'],
-        cfg.siglevel, total, poolplan.left_threshold(total),
-        plan=plan, p_list=(cfg.pw,), thr=_BHFDR_THR, wi=int(cfg.ww),
-        ww_min=bands.ww_min, L=int(bands.L), d_lo=cfg.ww,
-        d_hi=cfg.maxapart // bands.res, gap_s=cfg.ww)
-    counts_h, allowed_h, fetched = _to_host((counts, allowed_d, out[:10]))
-    decision = poolplan.emulate_freeze_bhfdr(plan, counts_h, total)
-    if not np.array_equal(allowed_h, np.asarray(decision.allowed)):
-        raise AssertionError(
-            'device freeze emulation diverged from the host replay')
-    ctx = _exact_ctx(bands, plan, decision.allowed, _BHFDR_THR)
-    return _bhfdr_to_host(fetched, out[10], cfg.siglevel,
-                          exact=ctx and (ctx, cfg.pw, 'K'))
-
-
 def bhfdr_chrom(bands: ChromBands, cfg: BHFDRConfig, device, mesh=None,
-                check=False):
+                scan_backend='auto', bh_backend='auto', check=False):
     """Donut-only caller with one global BH (reference callers.py:364-590)
     on one ``device``.  Returns {(x_bp, y_bp): (cen_x, cen_y, radius, O,
     Fold, p, q)} in bp, the table of
-    ``hicpeaks_tpu.core.engine.bhfdr_chrom``; the dtype rules are those of
-    :func:`hiccups_chrom`."""
+    ``hicpeaks_tpu.core.engine.bhfdr_chrom``; the routes, the checks and
+    the dtype rules are those of :func:`hiccups_chrom`."""
+    _refuse_mesh(mesh)
     device = resolve_device(device)
     res = bands.res
     plan = tuple(poolplan.bhfdr_pool_plan(cfg.pw, cfg.ww, cfg.maxww))
     total = bands.candidate_total(cfg.ww, cfg.maxapart // res)
-    _refuse_unported(mesh, check, total)
-    r = _bhfdr_fused(bands, cfg, plan, total, device)
+    route = resolve_route(scan_backend, bh_backend, check, total)
+    t_left = poolplan.left_threshold(total)
+    sh, outs, decision = _scan_front(
+        bands_to_device(bands, device), bands, plan, (cfg.pw,), _BHFDR_THR,
+        cfg.ww, cfg.maxapart // res, cfg.ww, route,
+        lambda c: poolplan.emulate_freeze_bhfdr(plan, c, total),
+        lambda c: poolplan.device_allowed_bhfdr(c, total, t_left, plan))
+    ctx = _exact_ctx(bands, plan, decision.allowed, _BHFDR_THR)
+    KS, KE, _, _ = outs[cfg.pw]
+    r = _score_one(sh, KS, KE, int(cfg.ww), cfg.siglevel, route,
+                   chunked=False, exact=ctx and (ctx, cfg.pw, 'K'))
 
     # insertion order is output order: Donuts follows the row-major
     # compaction, and the clustering and the bedpe writer iterate it

@@ -7,11 +7,16 @@ statistics in float64 on the host, as ``hicpeaks_tpu`` does:
 
 * ``host_chunk_qtab64`` / ``host_chunk_complete`` and
   ``host_bh_complete`` are copies of ``hicpeaks_tpu/ops/score.py:889-958``,
-  whose module imports JAX;
+  and ``host_chunk_dense`` / ``host_bh`` of ``:961-1016``, whose module
+  imports JAX;
 * ``_compact_to_host`` is ``hicpeaks_tpu/core/engine.py:928-1036`` for the
-  histogram bundles of the pyHICCUPS path (exact and suspect branches);
+  histogram bundles of the pyHICCUPS path (exact and suspect branches)
+  and for the segmented-BH bundle, whose device p and q it emits as
+  they are;
 * ``_bhfdr_to_host`` is ``hicpeaks_tpu/core/engine.py:1124-1162`` for the
-  global-BH bundle of the pyBHFDR path.
+  global-BH bundle of the pyBHFDR path;
+* ``_dense_to_host`` is the host half of the dense scorer
+  (``hicpeaks_tpu/core/engine.py:1230-1259``) on the fetched valid pixels.
 
 The exact branches recompute each pixel's E in float64
 (:mod:`hicpeaks_tpu_torch.ops.hostexact`).  The histogram branch moves lambda-chunk
@@ -21,12 +26,13 @@ superset's float64 p-values among themselves.
 """
 from __future__ import annotations
 
+import logging
+
 import numpy as np
 
 from ..ops import hostexact
 
-FALLBACK_ITEM = ('the non-fused fallback ladder (ROADMAP.md, Queue 1 '
-                 'item 10) is not ported yet')
+log = logging.getLogger(__name__)
 
 
 def host_chunk_qtab64(hist):
@@ -81,6 +87,85 @@ def host_bh_complete(p_small, ranks, m, sig):
     return q
 
 
+def host_chunk_dense(O, cid, valid, sig):
+    """Float64 p/q/keep for the DENSE fallback path (keep-cap overflow or
+    an explicit host BH request): the exact-histogram completion of
+    :func:`host_chunk_complete` computed entirely from fetched dense
+    arrays.  Returns (p64, q64, keep) dense arrays (p = q = 1 where
+    invalid)."""
+    O = np.asarray(O)
+    c = np.clip(np.asarray(cid), 0, 127).astype(np.int64)
+    v = np.asarray(valid)
+    oc = np.floor(np.asarray(O, np.float64)).astype(np.int64)
+    np.clip(oc, 0, None, out=oc)
+    C = int(oc[v].max()) + 1 if v.any() else 1
+    oc = np.minimum(oc, C - 1)
+    S = 128
+    hist = np.bincount((c[v] * C + oc[v]).ravel(),
+                       minlength=S * C).reshape(S, C)
+    ptab, qtab = host_chunk_qtab64(hist)
+    p = np.ones(O.shape, np.float64)
+    q = np.ones(O.shape, np.float64)
+    p[v] = ptab[c[v], oc[v]]
+    q[v] = qtab[c[v], oc[v]]
+    return p, q, v & (q <= sig)
+
+
+def host_bh(pvals, cids, valid):
+    """Per-chunk Benjamini-Hochberg on the host (numpy): exact statsmodels
+    fdr_bh semantics, no device sort.  Returns a dense q array (1 where
+    invalid)."""
+    p = np.asarray(pvals, np.float64)
+    c = np.asarray(cids)
+    v = np.asarray(valid)
+    q = np.ones_like(p)
+    flat_idx = np.nonzero(v.ravel())[0]
+    if flat_idx.size == 0:
+        return q
+    pv = p.ravel()[flat_idx]
+    cv = c.ravel()[flat_idx]
+    order = np.lexsort((pv, cv))
+    pv_s = pv[order]
+    cv_s = cv[order]
+    qs = np.empty_like(pv_s)
+    boundaries = np.nonzero(np.diff(cv_s))[0] + 1
+    starts = np.concatenate([[0], boundaries])
+    ends = np.concatenate([boundaries, [cv_s.size]])
+    for s, e in zip(starts, ends):
+        m = e - s
+        raw = pv_s[s:e] * m / np.arange(1, m + 1)
+        qs[s:e] = np.minimum(1.0, np.minimum.accumulate(raw[::-1])[::-1])
+    out_sorted = np.empty_like(qs)
+    out_sorted[order] = qs
+    q.ravel()[flat_idx] = out_sorted
+    return q
+
+
+def _dense_to_host(fetched, prod, sig, chunked):
+    """The dense scorer's host half on every valid pixel of one
+    background, fetched in row-major order as (d, x, O, ICE, Fold, cid, E,
+    gap): float64 p and q over all of them, the gap filter after BH, and
+    the host dict of the kept pixels with the device's O, ICE and Fold.
+
+    ``chunked``: per-chunk histogram BH on the device chunk ids
+    (:func:`host_chunk_dense`); else one global BH of ``1 - poisson.cdf``
+    (callers.py:541), as the dense route of pyBHFDR computes it."""
+    d_idx, x_idx, Ov, ICEv, Foldv, cid, Ev, gapv = fetched
+    valid = np.ones(Ov.shape, bool)
+    if chunked:
+        p64, q64, keep = host_chunk_dense(Ov, cid, valid, sig)
+    else:
+        from scipy.stats import poisson as _poisson
+        p64 = 1.0 - _poisson.cdf(np.floor(np.asarray(Ov, np.float64)),
+                                 np.asarray(Ev, np.float64))
+        q64 = host_bh(p64, valid.astype(np.int32), valid)
+        keep = q64 <= sig
+    keep = keep & ~np.asarray(gapv, bool)
+    return dict(x=x_idx[keep], y=x_idx[keep] + d_idx[keep], O=Ov[keep],
+                ICE=ICEv[keep], Fold=Foldv[keep], p=p64[keep], q=q64[keep],
+                prod=prod)
+
+
 def _bhfdr_to_host(fetched, prod, sig, exact=None):
     """The pyBHFDR bundle -> host dict of its significant pixels (x, y, O,
     ICE, Fold, p, q, prod), with exact float64 p and q.
@@ -118,17 +203,23 @@ def _bhfdr_to_host(fetched, prod, sig, exact=None):
 
 def _compact_to_host(fetched, prod, sig, exact=None, sus=None):
     """One background's fetched bundle -> host dict of its significant
-    pixels (x, y, O, ICE, Fold, p, q, prod).
+    pixels (x, y, O, ICE, Fold, p, q, prod), or None when the suspect
+    audit fails.
 
     ``fetched`` = (cnt, d_idx, x_idx, O, ICE, Fold, cid, hist) as numpy
-    arrays; ``prod`` is the device handle the postcheck reads.  ``exact`` =
-    (ExactCtx, p, kind) recomputes the statistics in float64; ``sus`` is
-    the fetched suspect bundle (cnt, d, x, cid, O, gap, thr).  A corrected
-    table that could hide a missed pixel raises NotImplementedError: the
-    dense fallback scorer it needs is not ported."""
+    arrays; ``prod`` is the device handle the postcheck reads.  ``sig``
+    None: the bundle is the segmented-BH form (cnt, d, x, O, ICE, Fold, p,
+    q) of kept pixels, emitted as it is.  ``exact`` = (ExactCtx, p, kind)
+    recomputes the statistics in float64; ``sus`` is the fetched suspect
+    bundle (cnt, d, x, cid, O, gap, thr).  A corrected table that could
+    hide a missed pixel returns None: the caller re-scores the background
+    with the dense scorer."""
     cnt, d_idx, x_idx, Ov, ICEv, Foldv, cid, hist = fetched
     n = int(cnt)
     d_idx, x_idx = d_idx[:n], x_idx[:n]
+    if sig is None:
+        return dict(x=x_idx, y=x_idx + d_idx, O=Ov[:n], ICE=ICEv[:n],
+                    Fold=Foldv[:n], p=cid[:n], q=hist[:n], prod=prod)
     if exact is None:
         p64, q64 = host_chunk_complete(Ov[:n], cid[:n], hist)
         fin = q64 <= sig
@@ -185,11 +276,12 @@ def _compact_to_host(fetched, prod, sig, exact=None, sus=None):
               & (hist_nosus > 0))
     missed[0, :] = False
     if missed.any():
-        raise NotImplementedError(
-            f'suspect-corrected BH table made {int(missed.sum())} (chunk, '
-            'count) cells significant below the device keep threshold; '
-            'the dense scorer that resolves this is part of '
-            + FALLBACK_ITEM)
+        log.warning(
+            'suspect-corrected BH table made %d (chunk, count) cells '
+            'significant below the device keep threshold — falling back to '
+            'the dense scorer for this background (f32-chunked; loci '
+            'unaffected)', int(missed.sum()))
+        return None
     p64s = np.where(valid64s, ptab[cid_new, O_s], 1.0)
     q64s = np.where(valid64s, qtab[cid_new, O_s], 1.0)
     fin_s = (q64s <= sig) & ~gap_s

@@ -4,7 +4,8 @@ Port of the parts of ``hicpeaks_tpu/ops/score.py`` that the pyHICCUPS and
 pyBHFDR paths run: the sheet derivation (``_build_sheets_jit`` for a float
 raw slab), the gap filter, expected values, lambda chunks and their edge
 suspects, the (chunk, count) histogram BH keep mask, its q table, the
-sort-free global BH keep superset, and the keep-mask compaction.  Dtypes
+sort-free global BH keep superset, segmented BH by a sort (the scorer of
+counts above the histogram's cap), and the keep-mask compaction.  Dtypes
 follow JAX's: the raw slab becomes float32,
 every other sheet keeps its vector's dtype, so float64 bands compute what
 the JAX package computes under its x64 flag.
@@ -248,6 +249,39 @@ def global_bh_keep(pval, valid, sig):
         k = k_next
     keep = valid & (pval <= sigf * k / msafe * infl)
     return keep, m, iterations
+
+
+def segmented_bh(pvals, seg, valid):
+    """Benjamini-Hochberg q-values within each segment of ``seg`` (int
+    ids), restricted to ``valid``; invalid entries get q = 1
+    (``hicpeaks_tpu.ops.score.segmented_bh``, statsmodels' fdr_bh within
+    a segment of size m: q = cummin-from-largest(p_sorted * m / rank),
+    clipped to 1).
+
+    The valid entries go in (segment, p, index) order, the order of JAX's
+    two-key ``lax.sort``: a stable sort by p, then a stable sort by
+    segment.  Tied p share one q whatever their order, since the suffix
+    min runs over the tie.  One suffix min per segment (at most 128
+    lambda chunks)."""
+    p = pvals.reshape(-1)
+    flat = torch.nonzero(valid.reshape(-1)).reshape(-1)
+    pv = p[flat]
+    sv = seg.reshape(-1)[flat]
+    o = torch.argsort(pv, stable=True)
+    o = o[torch.argsort(sv[o], stable=True)]
+    ps = pv[o]
+    q = torch.empty_like(ps)
+    _, sizes = torch.unique_consecutive(sv[o], return_counts=True)
+    start = 0
+    for m in sizes.tolist():
+        rank = torch.arange(1, m + 1, device=p.device).to(ps.dtype)
+        qc = torch.clamp(ps[start:start + m] * m / rank, max=1.0)
+        q[start:start + m] = torch.flip(
+            torch.cummin(torch.flip(qc, (0,)), 0).values, (0,))
+        start += m
+    out = torch.ones_like(p)
+    out[flat[o]] = q
+    return out.reshape(pvals.shape)
 
 
 def compact_mask_batched(keep):

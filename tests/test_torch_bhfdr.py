@@ -155,18 +155,22 @@ def test_bhfdr_to_host_matches_jax(coolers, exact):
     plan = tuple(jpoolplan.bhfdr_pool_plan(CFG.pw, CFG.ww, CFG.maxww))
     total = bands.candidate_total(CFG.ww, CFG.maxapart // bands.res)
     ops = tengine.bands_to_device(bands, 'cpu')
-    _, allowed, out = tengine._fused_bhfdr_device(
-        ops['raw'], ops['w0'], ops['bias'], ops['IR'], ops['gap'],
-        CFG.siglevel, total, jpoolplan.left_threshold(total), plan=plan,
-        p_list=(CFG.pw,), thr=16, wi=CFG.ww, ww_min=bands.ww_min,
-        L=int(bands.L), d_lo=CFG.ww, d_hi=CFG.maxapart // bands.res,
-        gap_s=CFG.ww)
+    t_left = jpoolplan.left_threshold(total)
+    route = tengine.resolve_route('auto', 'auto', False, total)
+    sh, outs, decision = tengine._scan_front(
+        ops, bands, plan, (CFG.pw,), 16, CFG.ww, CFG.maxapart // bands.res,
+        CFG.ww, route,
+        lambda c: tpoolplan.emulate_freeze_bhfdr(plan, c, total),
+        lambda c: tpoolplan.device_allowed_bhfdr(c, total, t_left, plan))
+    out = tengine._score_device_bhfdr_compact(
+        sh, outs[CFG.pw][0], outs[CFG.pw][1], CFG.siglevel, CFG.ww)
+    allowed = np.asarray(decision.allowed)
     assert not allowed.all()          # the shallow cooler breaks early
     fetched = tengine._to_host(out[:10])
     assert int(fetched[0]) > 0 and fetched[9].any()   # gap pixels kept
     ex = None
     if exact:
-        ex = (hostexact.ExactCtx(bands, plan, allowed.numpy().tolist(), 16),
+        ex = (hostexact.ExactCtx(bands, plan, allowed.tolist(), 16),
               CFG.pw, 'K')
     want = jengine._bhfdr_to_host(fetched, None, 1 << 17, CFG.siglevel,
                                   exact=ex)
@@ -190,13 +194,21 @@ def test_bhfdr_chrom_matches_jax_and_oracle(coolers, name, dtype):
 
 
 def test_bhfdr_unported_fallbacks_raise(coolers):
-    """Every case that would take the non-fused fallback ladder raises and
-    names the roadmap item."""
+    """A device mesh still raises and names its roadmap item; checkify and
+    a candidate total past the int32 freeze gate (the host-gate route) now
+    return the JAX engine's table."""
     clr, _ = coolers['parity']
     b = _bands(clr, np.float32)
-    for kw in (dict(mesh=object()), dict(check=True)):
-        with pytest.raises(NotImplementedError, match='item 10'):
-            tengine.bhfdr_chrom(b, CFG, device='cpu', **kw)
-    b.candidate_total = lambda *a: 1 << 28
-    with pytest.raises(NotImplementedError, match='item 10'):
-        tengine.bhfdr_chrom(b, CFG, device='cpu')
+    with pytest.raises(NotImplementedError, match='item 13'):
+        tengine.bhfdr_chrom(b, CFG, device='cpu', mesh=object())
+    want = jengine.bhfdr_chrom(_bands(clr, np.float32), CFG, check=True)
+    got = tengine.bhfdr_chrom(b, CFG, device='cpu', check=True)
+    assert len(want) > 0
+    _assert_tables_match(got, want, rtol=1e-12)
+    big = [_bands(clr, np.float32) for _ in range(2)]
+    for bb in big:
+        bb.candidate_total = lambda *a: 1 << 28
+    want = jengine.bhfdr_chrom(big[0], CFG)
+    got = tengine.bhfdr_chrom(big[1], CFG, device='cpu')
+    _assert_tables_match(got, want, rtol=1e-12)
+    assert list(got) == list(want)

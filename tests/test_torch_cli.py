@@ -1,7 +1,8 @@
 """The port's command-line tools (hicpeaks_tpu_torch/cli/peakcall.py)
 against the JAX package's, on one synthetic cooler with weights and the
-argv of test_cli_e2e.py: the same flags, byte-identical bedpe files, and a
-non-zero exit naming the ROADMAP item for each flag the port refuses."""
+argv of test_cli_e2e.py: the same flags, byte-identical bedpe files (with
+every engine flag value the port serves), and a non-zero exit naming the
+ROADMAP item for the one it refuses, ``--mesh-devices``."""
 import argparse
 import logging
 import os
@@ -46,11 +47,10 @@ def uri(tmp_path_factory):
     return u
 
 
-@pytest.fixture(scope='module')
-def jax_bedpe(uri, tmp_path_factory):
-    """Each JAX tool's bedpe bytes on the cooler (compilation cache off, so
-    the run writes nothing outside its directory)."""
-    root = tmp_path_factory.mktemp('jax_cli')
+def _jax_bedpes(uri, root, *extra):
+    """Each JAX tool's bedpe bytes on the cooler with ``extra`` flags
+    (compilation cache off, so the run writes nothing outside its
+    directory)."""
     old = os.environ.get('HICPEAKS_NO_COMPILE_CACHE')
     os.environ['HICPEAKS_NO_COMPILE_CACHE'] = '1'
     try:
@@ -58,7 +58,8 @@ def jax_bedpe(uri, tmp_path_factory):
         for tool, main in JAX_MAIN.items():
             bedpe = root / f'{tool}.bedpe'
             assert main(['-O', str(bedpe), '-p', uri, *ARGV[tool],
-                         '--logFile', str(root / f'{tool}.log')]) == 0
+                         '--logFile', str(root / f'{tool}.log'),
+                         *extra]) == 0
             out[tool] = bedpe.read_bytes()
             assert len(out[tool].splitlines()) > 0
     finally:
@@ -67,6 +68,20 @@ def jax_bedpe(uri, tmp_path_factory):
         else:
             os.environ['HICPEAKS_NO_COMPILE_CACHE'] = old
     return out
+
+
+@pytest.fixture(scope='module')
+def jax_bedpe(uri, tmp_path_factory):
+    """Each JAX tool's bedpe bytes at its default flags."""
+    return _jax_bedpes(uri, tmp_path_factory.mktemp('jax_cli'))
+
+
+@pytest.fixture(scope='module')
+def jax_bedpe_host_bh(uri, tmp_path_factory):
+    """Each JAX tool's bedpe bytes with ``--bh-backend host``: the dense
+    scorer's table, which is not the default one."""
+    return _jax_bedpes(uri, tmp_path_factory.mktemp('jax_cli_host'),
+                       '--bh-backend', 'host')
 
 
 def _port(tool, uri, tmp_path, *extra):
@@ -124,12 +139,23 @@ def test_flag_surface_is_the_jax_clis(tool, monkeypatch):
 
 
 @pytest.mark.parametrize('tool', list(ARGV))
+@pytest.mark.parametrize('flags', [
+    ['--scan-backend', 'jnp'], ['--scan-backend', 'pallas-interpret'],
+    ['--scan-backend', 'validate'], ['--bh-backend', 'host'],
+    ['--checkify']])
+def test_served_flags_match_jax_bedpe(uri, jax_bedpe, jax_bedpe_host_bh,
+                                      tool, flags, tmp_path):
+    """The flags of the fallback ladder and checkify write the JAX CLI's
+    bedpe with the same flags: its default bedpe where the flag leaves the
+    JAX table as it is, its own run for ``--bh-backend host``."""
+    rc, bedpe = _port(tool, uri, tmp_path, *flags)
+    assert rc == 0
+    want = jax_bedpe_host_bh if '--bh-backend' in flags else jax_bedpe
+    assert bedpe.read_bytes() == want[tool]
+
+
+@pytest.mark.parametrize('tool', list(ARGV))
 @pytest.mark.parametrize('flags,item', [
-    (['--scan-backend', 'jnp'], 'item 10'),
-    (['--scan-backend', 'pallas-interpret'], 'item 10'),
-    (['--scan-backend', 'validate'], 'item 10'),
-    (['--bh-backend', 'host'], 'item 10'),
-    (['--checkify'], 'item 14'),
     (['--mesh-devices', '2'], 'item 13')])
 def test_refused_flags_name_their_item(uri, tool, flags, item, tmp_path):
     with pytest.raises(NotImplementedError, match=item):
@@ -146,10 +172,10 @@ def _run_module(args):
 
 def test_module_exits_nonzero_on_a_refused_flag(uri, tmp_path):
     proc = _run_module(['pyBHFDR', '-O', str(tmp_path / 'x.bedpe'), '-p',
-                        uri, '--device', 'cpu', '--checkify'])
+                        uri, '--device', 'cpu', '--mesh-devices', '2'])
     assert proc.returncode != 0
     assert 'NotImplementedError' in proc.stderr
-    assert 'item 14' in proc.stderr
+    assert 'item 13' in proc.stderr
 
 
 def test_cuda_device_without_cuda_exits_nonzero(uri, tmp_path):
