@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Needs one CUDA card, nvcc and the repository checkout around this file;
-imports neither JAX nor h5py.  It exits non-zero on any failure, and
-without a CUDA card.  Phases:
+imports neither JAX nor h5py (coolers go through the port's io/h5lite).
+It exits non-zero on any failure, and without a CUDA card.  Phases:
 
 1. the card (nvidia-smi) and the kernels' build from csrc/;
 2. each CUDA kernel against its plain PyTorch twin at the bench shape
@@ -55,12 +55,27 @@ without a CUDA card.  Phases:
    span), built diagonal by diagonal deep enough that 10 * total >= 2^31,
    through the host-gate route, with the scan kernels against their twins
    on its sheets (pass B's full-width launch against the twin in column
-   strips), peak device memory, walls and the walls of its stages.
+   strips), peak device memory, walls and the walls of its stages;
+9. the user pipeline, every cooler through io/h5lite, under build/smoke/
+   (removed afterwards): (a) chr21 and chr22 (hg38) at 25 kb, full intra
+   span, as TXT (1 % of lines mirrored, plus 20,000 trans pixels), through
+   ``python -m hicpeaks_tpu_torch.cli.tocooler --device cuda``, intra-only
+   and ``--includeTrans``: pixels equal to the symmetrized input, weights
+   within 1e-9 of the port's ICE on the CPU with the same NaN mask,
+   ``n_iters`` and ``converged``, and a second balance on the card
+   bit-identical; (b) phase 4's chr1 as a cooler, balanced on the card
+   (two calls), then both CLIs on it with ``--device cuda``, each bedpe
+   byte-identical to the in-process engine's on the cooler's bands (read
+   wall, ICE walls, CLI walls); (c) chromosomes 1-22 and X at hg38
+   lengths, 10 kb, pixels within 2 Mb (depth 40), written, balanced on the
+   card and called by ``call_bhfdr`` on the card: walls by stage and by
+   chromosome, peak device memory, peaks; printed as one
+   ``user_pipeline`` JSON line.
 
     python3 chip_smoke.py --crossing-only
 
 runs phases 1 and 8f alone, in a process that holds nothing else, and
-prints no result line.
+prints no result line; ``--pipeline-only`` does the same for phase 9.
 
 The line before the last is one JSON object with a record per kernel (its
 main keys from phase 4, the others prefixed by phase or histogram shape);
@@ -834,11 +849,358 @@ def ladder(bench_bands, cfg, bcfg, want_h, want_b, chr1, device, counters):
     return runs, crossing_recs
 
 
+def run_cli(module, args, log_file):
+    """``python -m hicpeaks_tpu_torch.cli.<module> args`` in a process of
+    its own from the checkout; raises on a non-zero exit (with the log's
+    tail); returns its wall in seconds."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, '-m', f'hicpeaks_tpu_torch.cli.{module}', *args,
+         '--logFile', log_file], cwd=REPO, capture_output=True, text=True,
+        env=dict(os.environ, PYTHONPATH=REPO), timeout=600)
+    dt = time.perf_counter() - t0
+    if proc.returncode != 0:
+        tail = open(log_file).read()[-3000:] if os.path.exists(log_file) \
+            else ''
+        raise AssertionError(f'{module} {args} exited {proc.returncode}:\n'
+                             f'{proc.stderr[-3000:]}\n{tail}')
+    return dt
+
+
+def check_weights(got, want, what, bar=1e-9):
+    """Same NaN mask and weights within ``bar`` relative, or raise;
+    returns the max relative difference."""
+    import numpy as np
+    if not np.array_equal(np.isnan(got), np.isnan(want)):
+        raise AssertionError(f'{what}: NaN masks differ')
+    ok = ~np.isnan(want)
+    rel = float(np.max(np.abs(got[ok] - want[ok]) / np.abs(want[ok]),
+                       initial=0.0))
+    if rel > bar:
+        raise AssertionError(f'{what}: weights differ by {rel:.3g} relative '
+                             f'(bar {bar})')
+    return rel
+
+
+def ingest_check(device, tmp):
+    """Phase 9a: TXT -> toCooler on the card, intra-only and with
+    --includeTrans, at the reference example's scale (chr21 and chr22 at
+    25 kb, the full intra span), against the symmetrized input and against
+    the port's ICE on the CPU."""
+    import shutil
+    import numpy as np
+    from hicpeaks_tpu_torch.io.coolerlite import CoolerLite
+    from hicpeaks_tpu_torch.io.ingest import _symmetrize_upper
+    from hicpeaks_tpu_torch.io.synth import synthesize_chrom, write_txt
+    from hicpeaks_tpu_torch.ops import ice
+    res = 25000
+    sizes = {'21': 46_709_983, '22': 50_818_468}      # hg38
+    folder = os.path.join(tmp, '25K')
+    os.makedirs(folder)
+    want, offset = {}, 0
+    rng = np.random.default_rng(21)
+    for i, (c, size) in enumerate(sizes.items()):
+        n = -(-size // res)
+        b1, b2, ct, _, _ = synthesize_chrom(n_bins=n, res=res, seed=i,
+                                            depth=12.0, n_loops=40,
+                                            max_loop_span_bins=n - 64)
+        # a few mirrored (lower-triangle) lines, which ingestion folds up
+        flip = rng.random(b1.size) < 0.01
+        b1, b2 = np.where(flip, b2, b1), np.where(flip, b1, b2)
+        write_txt(os.path.join(folder, f'{c}_{c}.txt'), b1, b2, ct)
+        x, y, v = _symmetrize_upper(b1, b2, ct.astype(np.float64),
+                                    int(max(b1.max(), b2.max())) + 1)
+        want[c] = (x + offset, y + offset, v)
+        offset += n
+    n21 = -(-sizes['21'] // res)
+    tx = rng.integers(0, n21, 20000)
+    ty = rng.integers(0, offset - n21, 20000)
+    key = np.unique(tx * offset + ty)
+    tx, ty = key // offset, key % offset
+    tv = rng.integers(1, 5, tx.size)
+    write_txt(os.path.join(folder, '21_22.txt'), tx, ty, tv)
+    with open(os.path.join(tmp, 'sizes.txt'), 'w') as f:
+        f.writelines(f'chr{c}\t{s}\n' for c, s in sizes.items())
+    with open(os.path.join(tmp, 'meta.txt'), 'w') as f:
+        f.write(f'res:{res}\n{folder}\n')
+    n_px = sum(len(w[0]) for w in want.values())
+    log(f'[9a] TXT: chr21 + chr22 at 25 kb, {n_px} intra and {tx.size} '
+        f'trans pixels')
+    out = {}
+    for tag, extra in (('intra', []), ('trans', ['--includeTrans'])):
+        cool = os.path.join(tmp, f'{tag}.cool')
+        wall = run_cli('tocooler', ['-O', cool, '-d',
+                                    os.path.join(tmp, 'meta.txt'),
+                                    '--chromsizes-file',
+                                    os.path.join(tmp, 'sizes.txt'),
+                                    '--device', device, *extra],
+                       os.path.join(tmp, f'tocooler_{tag}.log'))
+        clr = CoolerLite(f'{cool}::{res}')
+        b1, b2, ct = clr.pixels()
+        exp = [np.concatenate([want[c][k] for c in sizes]) for k in range(3)]
+        if tag == 'trans':
+            order = np.lexsort((np.r_[exp[1], ty + n21],
+                                np.r_[exp[0], tx]))
+            exp = [np.r_[exp[0], tx][order], np.r_[exp[1], ty + n21][order],
+                   np.r_[exp[2], tv][order]]
+        if not all(np.array_equal(a, e) for a, e in
+                   zip((b1, b2, ct), exp)):
+            raise AssertionError(f'[9a] {tag}: the cooler\'s pixels are not '
+                                 'the symmetrized input')
+        card = clr.weights()
+        again = os.path.join(tmp, f'{tag}_again.cool')
+        shutil.copy(cool, again)
+        ice.balance(CoolerLite(f'{again}::{res}'), device=device)
+        if not np.array_equal(CoolerLite(f'{again}::{res}').weights(), card,
+                              equal_nan=True):
+            raise AssertionError(f'[9a] {tag}: two balances on the card '
+                                 'differ')
+        ice.balance(CoolerLite(f'{again}::{res}'), device='cpu')
+        rel = check_weights(card, CoolerLite(f'{again}::{res}').weights(),
+                            f'[9a] {tag} card against CPU')
+        # n_iters of each correction, card against CPU
+        if tag == 'trans':
+            parts = [(clr.pixels(), clr.nbins)]
+        else:
+            parts = [(clr.pixels_for_chrom(c), hi - lo) for c, (lo, hi) in
+                     ((c, clr.bin_range(c)) for c in clr.chromnames)]
+        iters = []
+        for px, n in parts:
+            r_card = ice.ice_balance_genome(*px, n, device=device)
+            r_cpu = ice.ice_balance_genome(*px, n, device='cpu')
+            if (r_card.n_iters, r_card.converged) != \
+                    (r_cpu.n_iters, r_cpu.converged):
+                raise AssertionError(f'[9a] {tag}: card {r_card.n_iters} '
+                                     f'iterations, CPU {r_cpu.n_iters}')
+            check_weights(r_card.bias, r_cpu.bias, f'[9a] {tag} ICE')
+            iters.append(r_card.n_iters)
+        out[tag] = dict(wall_s=wall, pixels=int(b1.size), max_rel=rel,
+                        n_iters=iters)
+        log(f'[9a] toCooler {tag} on the card in {wall:.2f} s (a process '
+            f'of its own): {b1.size} pixels equal the symmetrized input; '
+            f'weights against the CPU max rel {rel:.3g}, n_iters {iters} '
+            f'on both; a second balance on the card bit-identical')
+    return out
+
+
+def cli_check(device, tmp, counters, L=24900):
+    """Phase 9b: phase 4's chr1 (10 kb, L = 24,900, seed 42, 2000 loops)
+    written as a cooler, balanced on the card, then both CLIs from it on
+    the card against the in-process engines on the same cooler's bands."""
+    import numpy as np
+    import torch
+    from hicpeaks_tpu_torch.core import engine
+    from hicpeaks_tpu_torch.core.config import BHFDRConfig, HiccupsConfig
+    from hicpeaks_tpu_torch.io.coolerlite import (CoolerLite, binnify,
+                                                  create_cooler_file)
+    from hicpeaks_tpu_torch.io.peakfile import (write_bhfdr_bedpe,
+                                                write_hiccups_bedpe)
+    from hicpeaks_tpu_torch.io.synth import synthesize_chrom
+    from hicpeaks_tpu_torch.ops import ice
+    from hicpeaks_tpu_torch.ops.band import bands_from_cooler
+    num = 10_000_000 // RES + MAXWW + 1
+    b1, b2, ct, _, _ = synthesize_chrom(
+        n_bins=L, res=RES, seed=42, depth=40.0, n_loops=2000, decay=0.75,
+        max_loop_span_bins=num - MAXWW - 54)
+    cool = os.path.join(tmp, 'chr1.cool')
+    uri = f'{cool}::{RES}'
+    t0 = time.perf_counter()
+    create_cooler_file(uri, binnify({'1': L * RES}, RES),
+                       [{'bin1_id': b1, 'bin2_id': b2, 'count': ct}],
+                       metadata={'onlyIntra': 'True'})
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    px = CoolerLite(uri).pixels_for_chrom('1')
+    t_read = time.perf_counter() - t0
+    if not all(np.array_equal(a, e) for a, e in zip(px, (b1, b2, ct))):
+        raise AssertionError('[9b] chr1 pixels read back differ')
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ice.balance(CoolerLite(uri), device=device)
+        walls.append(time.perf_counter() - t0)
+    size_mb = os.path.getsize(cool) / 2 ** 20
+    log(f'[9b] chr1 at 10 kb: {b1.size} pixels written in {t_write:.2f} s '
+        f'({size_mb:.1f} MiB); host read of its pixels through h5lite '
+        f'{t_read:.3f} s; ICE on the card {walls[0]:.3f} s, steady '
+        f'{walls[1]:.3f} s (read, balance, write)')
+    out = dict(pixels=int(b1.size), write_s=t_write, read_s=t_read,
+               ice_s=walls[1], ice_first_s=walls[0], file_mib=size_mb)
+    clr = CoolerLite(uri)
+    for tool, cfg, call, writer in (
+            ('pyHICCUPS', HiccupsConfig(), engine.hiccups_chrom,
+             write_hiccups_bedpe),
+            ('pyBHFDR', BHFDRConfig(), engine.bhfdr_chrom,
+             write_bhfdr_bedpe)):
+        bedpe = os.path.join(tmp, f'{tool}.bedpe')
+        wall = run_cli('peakcall', [tool, '-O', bedpe, '-p', uri, '--pw', '2',
+                                    '--ww', '5', '--device', device],
+                       os.path.join(tmp, f'{tool}.log'))
+        # the bands the API builds for the chromosome (api._run)
+        bands = bands_from_cooler(clr, '1', cfg.maxapart, cfg.maxww,
+                                  cfg.ww_min, keep_sparse=False)
+        table, _, launches = run_counted(
+            counters, lambda: call(bands, cfg, device=device))
+        want = ['scan_pass_a', 'scan_pass_b'] + (
+            ['chunk_hist'] if tool == 'pyHICCUPS' else [])
+        idle = [n for n in want if launches[n] < 1]
+        if idle:
+            raise AssertionError(f'[9b] {tool} in process did not launch '
+                                 f'{idle}')
+        buf = io.StringIO()
+        writer(buf, '1', RES, table)
+        with open(bedpe) as f:
+            got = f.read()
+        if got != buf.getvalue():
+            raise AssertionError(f'[9b] the {tool} CLI\'s bedpe differs from '
+                                 'the in-process engine\'s')
+        out[tool] = dict(wall_s=wall, peaks=len(table), launches=launches)
+        log(f'[9b] {tool} CLI on the card from the cooler in {wall:.2f} s (a '
+            f'process of its own): {len(table)} peaks, bedpe byte-identical '
+            f'to the in-process engine\'s (kernel launches {launches})')
+    return out
+
+
+HG38 = {  # chromosome lengths, GRCh38 (UCSC hg38.chrom.sizes)
+    '1': 248_956_422, '2': 242_193_529, '3': 198_295_559, '4': 190_214_555,
+    '5': 181_538_259, '6': 170_805_979, '7': 159_345_973, '8': 145_138_636,
+    '9': 138_394_717, '10': 133_797_422, '11': 135_086_622,
+    '12': 133_275_309, '13': 114_364_328, '14': 107_043_718,
+    '15': 101_991_189, '16': 90_338_345, '17': 83_257_441, '18': 80_373_285,
+    '19': 58_617_616, '20': 64_444_167, '21': 46_709_983, '22': 50_818_468,
+    'X': 156_040_895}
+
+
+def genome_check(device, tmp, counters, sizes=HG38):
+    """Phase 9c: a synthetic genome (HG38, 10 kb, pixels within 2 Mb)
+    written by the port's writer, balanced on the card, then
+    ``call_bhfdr`` on the card; walls by stage and by chromosome."""
+    import logging
+    import re
+    import numpy as np
+    import torch
+    from hicpeaks_tpu_torch import api
+    from hicpeaks_tpu_torch.core.config import BHFDRConfig
+    from hicpeaks_tpu_torch.io.coolerlite import (CoolerLite, binnify,
+                                                  create_cooler_file)
+    from hicpeaks_tpu_torch.io.synth import synthesize_chrom
+    from hicpeaks_tpu_torch.ops import ice
+    span = 2_000_000 // RES
+    nbins = {c: -(-s // RES) for c, s in sizes.items()}
+    t0 = time.perf_counter()
+    chunks, offset = [], 0
+    for i, c in enumerate(sizes):
+        b1, b2, ct, _, _ = synthesize_chrom(
+            n_bins=nbins[c], res=RES, seed=100 + i, depth=40.0,
+            n_loops=nbins[c] // 12, decay=0.75, max_loop_span_bins=span - 64)
+        chunks.append({'bin1_id': b1 + offset, 'bin2_id': b2 + offset,
+                       'count': ct})
+        offset += nbins[c]
+    n_px = sum(len(ch['count']) for ch in chunks)
+    t_synth = time.perf_counter() - t0
+    cool = os.path.join(tmp, 'genome.cool')
+    uri = f'{cool}::{RES}'
+    t0 = time.perf_counter()
+    create_cooler_file(uri, binnify(sizes, RES), chunks,
+                       metadata={'onlyIntra': 'True'}, assembly='hg38')
+    t_write = time.perf_counter() - t0
+    del chunks
+    per_ice = {}
+    real = ice.ice_balance_genome
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = real(*a, **k)
+        per_ice[len(per_ice)] = time.perf_counter() - t
+        return r
+    ice.ice_balance_genome = timed
+    try:
+        t0 = time.perf_counter()
+        ice.balance(CoolerLite(uri), device=device)
+        t_ice = time.perf_counter() - t0
+    finally:
+        ice.ice_balance_genome = real
+    size_mb = os.path.getsize(cool) / 2 ** 20
+    log(f'[9c] genome: chromosomes {", ".join(sizes)}, '
+        f'{offset} bins at 10 kb, {n_px} pixels within 2 Mb (synthesized in '
+        f'{t_synth:.1f} s); written in {t_write:.2f} s ({size_mb:.1f} MiB); '
+        f'ICE on the card {t_ice:.2f} s')
+
+    records = []
+
+    class Grab(logging.Handler):
+        def emit(self, record):
+            records.append(record.getMessage())
+    grab = Grab(level=logging.INFO)
+    alog = logging.getLogger(api.__name__)
+    level = alog.level
+    alog.addHandler(grab)
+    alog.setLevel(logging.INFO)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        results, t_call, launches = run_counted(
+            counters, lambda: api.call_bhfdr(uri, BHFDRConfig(),
+                                             device=device))
+    finally:
+        alog.removeHandler(grab)
+        alog.setLevel(level)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    idle = [n for n in ('scan_pass_a', 'scan_pass_b') if launches[n] < 1]
+    if idle or set(results) != set(sizes):
+        raise AssertionError(f'[9c] call_bhfdr: chromosomes {sorted(results)}'
+                             f', idle kernels {idle}')
+    n_peaks = sum(len(t) for t in results.values())
+    per_chrom = {}
+    for msg in records:
+        m = re.match(r'Chrom:(\w+), (\d+) band pixels scored in ([\d.]+)s '
+                     r'\(band build ([\d.]+)s', msg)
+        if m:
+            per_chrom[m.group(1)] = dict(
+                candidates=int(m.group(2)), call_s=float(m.group(3)),
+                band_s=float(m.group(4)), peaks=len(results[m.group(1)]))
+    for i, c in enumerate(sizes):
+        per_chrom[c]['ice_s'] = per_ice[i]
+    log(f'[9c] call_bhfdr on the card: {t_call:.2f} s, {n_peaks} peaks, '
+        f'peak device memory {peak_gb:.2f} GiB, kernel launches {launches}')
+    log('[9c] per chromosome (ICE s / band build s / call s / peaks): ' +
+        ', '.join(f'{c} {r["ice_s"]:.3f}/{r["band_s"]:.2f}/'
+                  f'{r["call_s"]:.3f}/{r["peaks"]}'
+                  for c, r in per_chrom.items()))
+    return dict(chroms=len(sizes), bins=offset, pixels=n_px,
+                synth_s=t_synth, write_s=t_write, ice_s=t_ice,
+                call_s=t_call, peaks=n_peaks, peak_gib=peak_gb,
+                file_mib=size_mb, launches=launches, per_chrom=per_chrom)
+
+
+def user_pipeline(device, counters):
+    """Phase 9: the user pipeline on the card, every cooler read and
+    written through the port's h5lite (the host has no h5py): (a) TXT ->
+    toCooler, (b) both CLIs from a cooler, (c) a genome.  Its files live
+    under build/smoke/ and are removed afterwards."""
+    import shutil
+    tmp = os.path.join(REPO, 'build', 'smoke')
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    try:
+        log('[9] the user pipeline: TXT -> toCooler -> CLIs -> bedpe')
+        out = dict(ingest=ingest_check(device, tmp),
+                   clis=cli_check(device, tmp, counters),
+                   genome=genome_check(device, tmp, counters))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(json.dumps({'user_pipeline': out}))
+    return out
+
+
 def main():
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--crossing-only', action='store_true',
                     help='run phases 1 and 8f alone')
+    ap.add_argument('--pipeline-only', action='store_true',
+                    help='run phases 1 and 9 alone')
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -867,8 +1229,11 @@ def main():
             log(f'    {line.strip()}')
     counters = (cuda_scan.scan_pass_a, cuda_scan.scan_pass_b,
                 cuda_hist.chunk_hist)
-    if args.crossing_only:
-        crossing(device, counters)
+    if args.crossing_only or args.pipeline_only:
+        if args.crossing_only:
+            crossing(device, counters)
+        if args.pipeline_only:
+            user_pipeline(device, counters)
         log(smi)
         return 0
 
@@ -981,6 +1346,9 @@ def main():
         bcfg, want_h, want_b, chr1_run, device, counters)
     del chr1_run
 
+    # --- 9: the user pipeline from TXT to bedpe, coolers through h5lite ---
+    pipeline = user_pipeline(device, counters)
+
     log(smi)
     # the main keys are the pyHICCUPS path at chr1 scale (phase 4); the
     # prefixed ones the other shapes, plans and the pyBHFDR caller
@@ -995,7 +1363,12 @@ def main():
                    bhfdr_launches=b_launches[name],
                    deep_launches=deep_launches[name],
                    **{f'{tag}_launches': n[name]
-                      for tag, n in ladder_launches.items()})
+                      for tag, n in ladder_launches.items()},
+                   pipeline_hiccups_launches=pipeline['clis']['pyHICCUPS'][
+                       'launches'][name],
+                   pipeline_bhfdr_launches=pipeline['clis']['pyBHFDR'][
+                       'launches'][name],
+                   genome_launches=pipeline['genome']['launches'][name])
         for tag, r in (('bench', bench), ('multi_pair', multi),
                        ('bhfdr', chr1_b), ('bhfdr_bench', bench_b)):
             if name in r:

@@ -7,6 +7,13 @@ rerun resumes from them) and a prefetch thread that builds the next
 chromosome's host bands while the device works on the current one.  The
 consumer does the host-to-device copy (``engine.bands_to_device``).  The
 ``jax.distributed`` branches and the profiler capture are not ported.
+
+``call_hiccups``/``call_bhfdr`` take the JAX API's parameters in its
+order, then the keyword ``device``: ``mesh`` other than None raises
+NotImplementedError (multi-GPU is ROADMAP.md, Queue 1 item 13), and
+``profile_dir``, ``shape_bucket``, ``row_bucket`` and ``max_count_floor``
+are logged as having no effect (they shared XLA executables or drove the
+JAX profiler; eager PyTorch compiles nothing).
 """
 from __future__ import annotations
 
@@ -63,11 +70,18 @@ def _selected_chroms(clr, chroms):
     return out
 
 
+_NO_EFFECT = {'profile_dir': None, 'shape_bucket': 4096, 'row_bucket': 8,
+              'max_count_floor': None}
+
+
 def _run(kind, cooler_uri, cfg, chroms, device, checkpoint_dir, dtype,
-         scan_backend, bh_backend, check):
-    # h5py only where a cooler is read: the engine itself never needs it
+         scan_backend, bh_backend, check, mesh, **no_effect):
     from .io.coolerlite import CoolerLite
 
+    engine._refuse_mesh(mesh)
+    for name, value in no_effect.items():
+        if value != _NO_EFFECT[name]:
+            log.info('%s=%r has no effect on this engine', name, value)
     device = engine.resolve_device(device)
     caller = engine.hiccups_chrom if kind == 'hiccups' else engine.bhfdr_chrom
     clr = CoolerLite(cooler_uri)
@@ -88,7 +102,6 @@ def _run(kind, cooler_uri, cfg, chroms, device, checkpoint_dir, dtype,
     # Pipelined ingestion: one producer thread builds the next chromosome's
     # host bands (HDF5 read + native scatter) while the device works on the
     # current one; maxsize=1 bounds in-flight bands to two chromosomes.
-    # h5py handles are touched only by this thread once it starts.
     band_q = queue.Queue(maxsize=1)
     stop = threading.Event()
 
@@ -152,26 +165,31 @@ def _run(kind, cooler_uri, cfg, chroms, device, checkpoint_dir, dtype,
     return results
 
 
-def call_hiccups(cooler_uri, cfg: HiccupsConfig = None, chroms=('#', 'X'), *,
-                 device, checkpoint_dir=None, dtype=np.float32,
-                 scan_backend='auto', bh_backend='auto', check=False):
+def call_hiccups(cooler_uri, cfg: HiccupsConfig = None, chroms=('#', 'X'),
+                 mesh=None, scan_backend='auto', checkpoint_dir=None,
+                 dtype=np.float32, profile_dir=None, shape_bucket=4096,
+                 bh_backend='auto', check=False, row_bucket=8,
+                 max_count_floor=None, *, device):
     """-> {chrom_label: {(x_bp, y_bp): 10-tuple}} (see
     ``engine.hiccups_chrom``, whose ``scan_backend``, ``bh_backend`` and
-    ``check`` these are), every chromosome on ``device``.
-
-    The JAX API's ``shape_bucket``/``row_bucket``/``max_count_floor`` are
-    not ported: they padded shapes so XLA executables could be shared, and
-    eager PyTorch compiles nothing."""
+    ``check`` these are), every chromosome on ``device``.  The parameters
+    are the JAX API's (module docstring)."""
     return _run('hiccups', cooler_uri, cfg or HiccupsConfig(), chroms,
                 device, checkpoint_dir, dtype, scan_backend, bh_backend,
-                check)
+                check, mesh, profile_dir=profile_dir,
+                shape_bucket=shape_bucket, row_bucket=row_bucket,
+                max_count_floor=max_count_floor)
 
 
-def call_bhfdr(cooler_uri, cfg: BHFDRConfig = None, chroms=('#', 'X'), *,
-               device, checkpoint_dir=None, dtype=np.float32,
-               scan_backend='auto', bh_backend='auto', check=False):
+def call_bhfdr(cooler_uri, cfg: BHFDRConfig = None, chroms=('#', 'X'),
+               mesh=None, scan_backend='auto', checkpoint_dir=None,
+               dtype=np.float32, profile_dir=None, shape_bucket=4096,
+               bh_backend='auto', check=False, row_bucket=8,
+               max_count_floor=None, *, device):
     """-> {chrom_label: {(x_bp, y_bp): 7-tuple}} (see
-    ``engine.bhfdr_chrom``), every chromosome on ``device``; the arguments
-    are those of :func:`call_hiccups`."""
+    ``engine.bhfdr_chrom``), every chromosome on ``device``; the
+    parameters are those of :func:`call_hiccups`."""
     return _run('bhfdr', cooler_uri, cfg or BHFDRConfig(), chroms, device,
-                checkpoint_dir, dtype, scan_backend, bh_backend, check)
+                checkpoint_dir, dtype, scan_backend, bh_backend, check, mesh,
+                profile_dir=profile_dir, shape_bucket=shape_bucket,
+                row_bucket=row_bucket, max_count_floor=max_count_floor)

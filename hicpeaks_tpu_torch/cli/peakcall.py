@@ -20,7 +20,8 @@ PyTorch twins and cross-checks them), and ``--checkify`` the port's checks
 ``--shape-bucket`` (it shared XLA executables) and ``--nproc`` are accepted
 and have no effect.
 
-Reading a cooler needs h5py; nothing else here does.
+Coolers are read through ``io/h5lite`` (numpy and zlib): no h5py is
+needed, so the tools run on a host that has none.
 """
 from __future__ import annotations
 
@@ -137,7 +138,6 @@ def _refuse_unserved(args):
 
 def _run(parser, args, logger, call, cfg, writer):
     """The shared body of both tools once the config is built."""
-    # h5py only where a cooler is read
     from ..io.coolerlite import CoolerLite
 
     for flag in ('shape_bucket', 'nproc'):

@@ -1,6 +1,7 @@
-"""Cooler, synthetic-data and bedpe I/O of the port.
+"""Cooler, TXT, synthetic-data and bedpe I/O of the port.
 
-Nothing is imported here: ``coolerlite`` needs h5py, which a host that runs
-the engines from in-memory bands need not have, so each caller imports the
-module it uses.
+``h5lite`` reads and writes the HDF5 subset that coolers use with numpy and
+zlib, and ``coolerlite`` is the cooler schema on top of it: no module here
+needs h5py.  Nothing is imported here; each caller imports the module it
+uses.
 """

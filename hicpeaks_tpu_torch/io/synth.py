@@ -1,8 +1,7 @@
 """Synthetic Hi-C data generation.
 
 The port's copy of ``hicpeaks_tpu/io/synth.py``, trimmed to the
-single-resolution generator and the cooler writer.  The writer imports the
-cooler module, and with it h5py, only when called.
+single-resolution generator, the TXT writer and the cooler writer.
 
 The reference validates against a bundled K562 chr21 25Kb matrix
 (example/25K/21_21.txt per README.rst:119-163) which is absent from this
@@ -81,6 +80,13 @@ def synthesize_chrom(n_bins=1000, res=25000, n_loops=30, seed=0,
     count = np.concatenate(ct_list)
     order = np.lexsort((bin2, bin1))
     return bin1[order], bin2[order], count[order], loops, bias
+
+
+def write_txt(path, bin1, bin2, count):
+    """3-column ``bin1 bin2 IF`` TXT, the reference ingestion format
+    (README.rst:148-163)."""
+    arr = np.column_stack([bin1, bin2, count])
+    np.savetxt(path, arr, fmt='%d')
 
 
 def synthetic_cooler(path, n_bins=1000, res=25000, chrom='21', seed=0,

@@ -12,8 +12,9 @@ PyTorch twins.
 Floating-point contraction is off (``--fmad=false``) because the pass-B
 kernel replays the ring scan's add chains bit for bit.
 
-The host library (``csrc/host/bandbuild.cpp``: the band scatter and the
-float64 ring sums) is compiled by the host C++ compiler into
+The host library (``csrc/host/*.cpp``: ``bandbuild.cpp``, the band
+scatter and the float64 ring sums, and ``fastload.cpp``, the threaded TXT
+parser) is compiled by the host C++ compiler into one library in
 ``build/host/`` at first use, with the flags the JAX package's native
 Makefile uses.  They fix the float contraction of the float64 band and
 ring sums, which must equal the JAX package's bit for bit.  A failed build
@@ -38,7 +39,8 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-O3',
               '--fmad=false', '-std=c++17', '-Xcompiler', '-fPIC',
               '-Xptxas', '-v')
 
-HOST_SRC = os.path.join(CSRC_DIR, 'host', 'bandbuild.cpp')
+HOST_SRCS = tuple(sorted(glob.glob(os.path.join(CSRC_DIR, 'host',
+                                                '*.cpp'))))
 HOST_BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), 'build', 'host')
 CXX_FLAGS = ('-O3', '-march=native', '-std=c++17', '-fPIC', '-pthread')
 
@@ -151,7 +153,7 @@ def build_host():
     """Compile the native host library if its hashed file is missing;
     returns its path.  Raises if the compiler is missing or fails."""
     path = _hashed_path(HOST_BUILD_DIR, 'libhicpeaks_host', CXX_FLAGS,
-                        [HOST_SRC])
+                        HOST_SRCS)
     if os.path.exists(path):
         return path
     cxx = shutil.which('g++')
@@ -160,7 +162,7 @@ def build_host():
                            'of hicpeaks_tpu_torch cannot be built')
     os.makedirs(HOST_BUILD_DIR, exist_ok=True)
     tmp = f'{path}.tmp.{os.getpid()}'
-    cmd = [cxx, *CXX_FLAGS, '-shared', '-o', tmp, HOST_SRC]
+    cmd = [cxx, *CXX_FLAGS, '-shared', '-o', tmp, *HOST_SRCS]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f'host library build failed (rc {proc.returncode})'

@@ -113,3 +113,38 @@ def test_loader_failure_propagates(uri, monkeypatch):
         tapi.call_hiccups(uri, CFG, device='cpu')
     assert not any(t.name == 'hiccups-band-loader' and t.is_alive()
                    for t in threading.enumerate())
+
+
+def test_jax_positional_order_is_accepted(uri):
+    """JAX's order after ``chroms``: mesh, scan_backend, checkpoint_dir,
+    dtype, profile_dir, shape_bucket, bh_backend, check, row_bucket,
+    max_count_floor; ``device`` stays keyword-only."""
+    want = tapi.call_bhfdr(uri, BCFG, device='cpu', dtype=np.float64)
+    got = tapi.call_bhfdr(uri, BCFG, ('#', 'X'), None, 'auto', None,
+                          np.float64, None, 4096, 'auto', False, 8, None,
+                          device='cpu')
+    assert got == want
+    with pytest.raises(TypeError):
+        tapi.call_hiccups(uri, CFG, ('#', 'X'), None, 'auto', None,
+                          np.float64, None, 4096, 'auto', False, 8, None,
+                          'cpu')
+
+
+@pytest.mark.parametrize('call', ['call_hiccups', 'call_bhfdr'])
+def test_mesh_raises_naming_the_roadmap_item(uri, call):
+    with pytest.raises(NotImplementedError,
+                       match='ROADMAP.md, Queue 1 item 13'):
+        getattr(tapi, call)(uri, mesh=object(), device='cpu')
+
+
+def test_bucket_arguments_are_logged_without_effect(uri, caplog):
+    want = tapi.call_hiccups(uri, CFG, chroms=('2',), device='cpu')
+    with caplog.at_level('INFO', logger=tapi.__name__):
+        got = tapi.call_hiccups(uri, CFG, chroms=('2',), device='cpu',
+                                profile_dir='/nonexistent', shape_bucket=512,
+                                row_bucket=16, max_count_floor=4096)
+    assert got == want
+    said = [r.getMessage() for r in caplog.records
+            if 'has no effect' in r.getMessage()]
+    assert [s.split('=')[0] for s in said] == [
+        'profile_dir', 'shape_bucket', 'row_bucket', 'max_count_floor']

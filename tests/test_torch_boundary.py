@@ -1,7 +1,7 @@
-"""The port's boundary: hicpeaks_tpu_torch (engines, API, CLI) imports
-nothing of JAX or of the JAX package (nor h5py on the engine path), and a
-CUDA request on a machine without CUDA raises instead of running on the
-CPU.
+"""The port's boundary: hicpeaks_tpu_torch (engines, API, the peak-calling
+CLIs from a cooler, toCooler) imports nothing of JAX, of the JAX package or
+of h5py (coolers go through the port's io/h5lite), and a CUDA request on a
+machine without CUDA raises instead of running on the CPU.
 
 The import check runs in a subprocess, because this test session has
 imported JAX already (tests/conftest.py)."""
@@ -22,11 +22,10 @@ _PROBE = textwrap.dedent('''
 
 
     class Refuse(importlib.abc.MetaPathFinder):
-        """Refuses jax and the JAX package before anything is imported."""
+        """Refuses jax, the JAX package and h5py for the whole run."""
 
         def find_spec(self, name, path=None, target=None):
-            if name == 'jax' or name.startswith('jax.') or \\
-                    name == 'hicpeaks_tpu' or name.startswith('hicpeaks_tpu.'):
+            if name.split('.')[0] in ('jax', 'hicpeaks_tpu', 'h5py'):
                 raise ImportError(f'the port imported {name}')
             return None
 
@@ -55,11 +54,24 @@ _PROBE = textwrap.dedent('''
                           device='cpu')
     btable = bhfdr_chrom(bands, BHFDRConfig(maxapart=maxapart), device='cpu')
     write_bhfdr_bedpe(sys.stderr, '1', res, btable)
-    engine_h5py = 'h5py' in sys.modules
 
-    # the pyBHFDR CLI end to end on a tiny synthetic cooler (h5py from here)
-    from hicpeaks_tpu_torch.io.synth import synthetic_cooler
+    # toCooler from TXT, then the pyBHFDR CLI on a synthetic cooler
+    import hicpeaks_tpu_torch.cli.tocooler as toc
+    from hicpeaks_tpu_torch.io.coolerlite import CoolerLite
+    from hicpeaks_tpu_torch.io.synth import synthetic_cooler, write_txt
     tmp = sys.argv[1]
+    import os
+    os.makedirs(f'{tmp}/txt')
+    write_txt(f'{tmp}/txt/1_1.txt', b1, b2, ct)
+    with open(f'{tmp}/sizes', 'w') as f:
+        f.write(f'chr1\\t{L * res}\\n')
+    with open(f'{tmp}/meta', 'w') as f:
+        f.write(f'res:{res}\\n{tmp}/txt\\n')
+    rc_toc = toc.main(['-O', f'{tmp}/toc.cool', '-d', f'{tmp}/meta',
+                       '--chromsizes-file', f'{tmp}/sizes', '--device', 'cpu',
+                       '--logFile', f'{tmp}/toc.log'])
+    n_weights = int((CoolerLite(f'{tmp}/toc.cool::{res}').weights() > 0)
+                    .sum())
     uri, _ = synthetic_cooler(f'{tmp}/probe.cool', n_bins=400, res=res,
                               chrom='1', seed=3, depth=40.0, n_loops=20,
                               decay=0.75, max_loop_span_bins=150)
@@ -69,9 +81,8 @@ _PROBE = textwrap.dedent('''
     with open(f'{tmp}/probe.bedpe') as f:
         n_lines = len(f.read().splitlines())
     jaxpkg = sorted(m for m in sys.modules
-                    if m in ('jax', 'hicpeaks_tpu') or
-                    m.startswith(('jax.', 'hicpeaks_tpu.')))
-    print(len(table), len(btable), rc, n_lines, engine_h5py,
+                    if m.split('.')[0] in ('jax', 'hicpeaks_tpu', 'h5py'))
+    print(len(table), len(btable), rc, n_lines, rc_toc, n_weights,
           ','.join(jaxpkg) or '-')
 ''')
 
@@ -82,12 +93,12 @@ def test_port_never_imports_jax_or_h5py(tmp_path):
                           env=env, cwd=REPO, capture_output=True, text=True,
                           timeout=300)
     assert proc.returncode == 0, proc.stderr
-    n_peaks, n_bhfdr, rc, n_lines, engine_h5py, jaxpkg = \
+    n_peaks, n_bhfdr, rc, n_lines, rc_toc, n_weights, jaxpkg = \
         proc.stdout.split()
     assert int(n_peaks) > 0 and int(n_bhfdr) > 0
-    assert (rc, engine_h5py) == ('0', 'False')
-    assert int(n_lines) > 0
-    assert jaxpkg == '-', f'modules of jax or hicpeaks_tpu loaded: {jaxpkg}'
+    assert (rc, rc_toc) == ('0', '0')
+    assert int(n_lines) > 0 and int(n_weights) > 400
+    assert jaxpkg == '-', f'modules of jax, hicpeaks_tpu or h5py: {jaxpkg}'
 
 
 def test_cuda_request_without_cuda_raises():

@@ -1,5 +1,5 @@
 """Static check that the port stands alone: no ``.py`` file under
-hicpeaks_tpu_torch/, and not chip_smoke.py, imports ``jax`` or
+hicpeaks_tpu_torch/, and not chip_smoke.py, imports ``jax``, ``h5py`` or
 ``hicpeaks_tpu``, or names a path into ``hicpeaks_tpu/`` or ``native/``.
 
 Docstrings may name the JAX counterparts, and a ``file:line`` label of a
@@ -14,7 +14,7 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, 'hicpeaks_tpu_torch')
 
-_FORBIDDEN_MODULES = ('jax', 'hicpeaks_tpu')
+_FORBIDDEN_MODULES = ('jax', 'hicpeaks_tpu', 'h5py')
 _PATH_RE = re.compile(r'(^|[/\\])(hicpeaks_tpu|native)([/\\]|$)')
 _LABEL_RE = re.compile(r'^hicpeaks_tpu/[\w/]+\.py:\d+$')
 
@@ -88,6 +88,8 @@ def test_port_file_imports_nothing_of_jax_or_the_jax_package(path):
     'import jax.numpy as jnp',
     'from hicpeaks_tpu.core import poolplan',
     'import hicpeaks_tpu',
+    'import h5py',
+    'from h5py import File',
     'importlib.import_module("hicpeaks_tpu.io.synth")',
     'p = os.path.join(ROOT, "native", "libbandbuild.so")',
     'p = "hicpeaks_tpu/io/synth.py"',
