@@ -11,9 +11,11 @@ It exits non-zero on any failure, and without a CUDA card.  Phases:
 2. each CUDA kernel against its plain PyTorch twin at the bench shape
    (bench.py: L=8192 bins at 10 kb, 2 Mb span, pw=2, ww=5, maxww=10,
    seed 0): pass-A counts equal, pass-B captures bit-equal, histogram
-   equal; times by CUDA events (median of repeats), each beside its bound
-   (the least time for its bytes and operations at the H100's peaks) and,
-   for the histogram, beside one ``torch.bincount`` of the same inputs;
+   equal; times by CUDA events (median of repeats: one call a sample, and
+   where that reads under 2 ms also 20 back-to-back calls a sample,
+   which is then the time), each beside its bound (the least time for its
+   bytes and operations at the H100's peaks) and, for the histogram,
+   beside one ``torch.bincount`` of the same inputs;
    then the scan kernels again on the multi-pair plan pw=(1, 2),
    ww=(3, 5), maxww=10, whose drift re-adds read kept rings;
 3. the main path, ``hiccups_chrom`` on the card, with every kernel's
@@ -70,17 +72,34 @@ It exits non-zero on any failure, and without a CUDA card.  Phases:
    lengths, 10 kb, pixels within 2 Mb (depth 40), written, balanced on the
    card and called by ``call_bhfdr`` on the card: walls by stage and by
    chromosome, peak device memory, peaks; printed as one
-   ``user_pipeline`` JSON line.
+   ``user_pipeline`` JSON line;
+10. the figures' path, on phase 9's files before they are removed: (a)
+   APA of (c)'s calls on (c)'s cooler, ``cli.apa.apa_stats`` on the card
+   and on the CPU with every output bit-identical (walls by stage, peak
+   device memory), then the apa-analysis CLI on the card in a process of
+   its own printing the same count; (b) one chr21 library (hg38 length,
+   5 kb fine bins, seed 21) binned at 5, 10 and 25 kb, balanced on the
+   card, the pyHICCUPS CLI on the card at each (HiCCUPS's pw/ww for the
+   resolution), each bedpe byte-identical to the in-process engine's on
+   the cooler's bands, which is held against the float64 oracle at 10 and
+   25 kb, then the combine-resolutions CLI, its file equal to
+   ``combine_annotations`` and at least one fine peak confirmed by a
+   coarser one; (c) where matplotlib is installed, the APA figure drawn
+   from the CPU byte-identical to the card's, and peak-plot of 4 Mb of
+   chr21 at 10 kb with the combined loops; printed as one ``figures`` JSON
+   line.
 
     python3 chip_smoke.py --crossing-only
 
 runs phases 1 and 8f alone, in a process that holds nothing else, and
-prints no result line; ``--pipeline-only`` does the same for phase 9.
+prints no result line; ``--pipeline-only`` does the same for phases 9 and
+10.
 
 The line before the last is one JSON object with a record per kernel (its
 main keys from phase 4, the others prefixed by phase or histogram shape);
 the last line is {"ok": true, "device": {...}}.
 """
+import importlib.util
 import io
 import json
 import os
@@ -109,6 +128,9 @@ DEVICE_RTOL, P_FLOOR = 1e-3, 1e-12
 # still hold ~1 read), so that 10 * total crosses 2^31
 CROSSING_L, CROSSING_RES, CROSSING_DEPTH = 248_956, 1000, 300.0
 STRIP = 65536   # phase 8f's pass-B twin runs on strips this many columns wide
+# a time below BATCH_BELOW_MS ms is taken over BATCH back-to-back calls
+BATCH_BELOW_MS, BATCH = 2.0, 20
+HAS_MATPLOTLIB = importlib.util.find_spec('matplotlib') is not None
 KERNELS = (
     ('scan_pass_a', 'hicpeaks_tpu_torch/csrc/scan_pass_a.cu',
      'hicpeaks_tpu/ops/pallas_scan.py:141'),
@@ -170,6 +192,39 @@ def cuda_ms(fn, reps):
     return statistics.median(cuda_samples(fn, reps))
 
 
+def cuda_batched_ms(fn, reps, k=BATCH):
+    """Median over ``reps`` samples of the milliseconds of ``k``
+    back-to-back calls of ``fn`` between two CUDA events, divided by
+    ``k``, after one warm-up: the host's enqueue of one call overlaps the
+    device work of the one before."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(k):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / k)
+    return statistics.median(times)
+
+
+def kernel_time(fn, reps):
+    """{ms, single_ms, batched_ms} of ``fn``: ``single_ms`` one call a
+    sample (:func:`cuda_ms`, the script's earlier method); below
+    BATCH_BELOW_MS, where one call's time counts the host's enqueue, also
+    ``batched_ms`` (:func:`cuda_batched_ms`), which is then ``ms``."""
+    single = cuda_ms(fn, reps)
+    if single >= BATCH_BELOW_MS:
+        return dict(ms=single, single_ms=single, batched_ms=None)
+    batched = cuda_batched_ms(fn, reps)
+    return dict(ms=batched, single_ms=single, batched_ms=batched)
+
+
 def bound_ms(bytes_, ops):
     """The least time the card could take for ``bytes_`` moved once and
     ``ops`` float32 operations: the larger of the two times at the H100
@@ -179,6 +234,14 @@ def bound_ms(bytes_, ops):
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by='bytes' if t_bytes >= t_ops else 'operations',
                 bytes=int(bytes_), ops=int(ops))
+
+
+def timing(r):
+    """How a record's ``ms`` was taken, for the log."""
+    if r['batched_ms'] is None:
+        return 'one call a sample'
+    return (f'{BATCH} calls a sample; one call a sample '
+            f'{r["single_ms"]:.4f} ms')
 
 
 def max_abs(a, b):
@@ -213,11 +276,11 @@ def hist_check(oc, cid0, S, C, reps, kernel=None):
     del lib_h
     return dict(
         max_abs_err=max_abs(h_k, h_t),
-        ms=cuda_ms(lambda: kernel(oc, cid0, S, C), reps),
-        plain_ms=cuda_ms(lambda: cuda_hist.chunk_hist_torch(oc, cid0, S, C),
-                         reps),
-        library_ms=cuda_ms(lambda: torch.bincount(flat, minlength=B * S * C),
-                           reps),
+        **kernel_time(lambda: kernel(oc, cid0, S, C), reps),
+        plain_ms=kernel_time(
+            lambda: cuda_hist.chunk_hist_torch(oc, cid0, S, C), reps)['ms'],
+        library_ms=kernel_time(
+            lambda: torch.bincount(flat, minlength=B * S * C), reps)['ms'],
         # int32 counts and ids in, the int32 table out; one integer
         # increment per (background, pixel)
         **bound_ms(bytes_=oc.numel() * 4 + cid0.numel() * 4 + B * S * C * 4,
@@ -262,10 +325,11 @@ def kernel_checks(bands, cfg, device, reps, caller='hiccups', keep=None):
                              f'twin {a_t.tolist()}')
     out['scan_pass_a'] = dict(
         max_abs_err=max_abs(a_k, a_t),
-        ms=cuda_ms(lambda: cuda_scan.scan_pass_a(raw, cand, plan, p_list,
-                                                 thr), reps),
-        plain_ms=cuda_ms(lambda: twin.scan_pass_a(raw, cand, plan, p_list,
-                                                  thr), reps),
+        **kernel_time(
+            lambda: cuda_scan.scan_pass_a(raw, cand, plan, p_list, thr), reps),
+        plain_ms=kernel_time(
+            lambda: twin.scan_pass_a(raw, cand, plan, p_list, thr),
+            reps)['ms'],
         library_ms=None,
         # f32 raw and bool mask in, int32 counts out; per position and
         # radius the Vn and Wq folds and the ring (3 adds), per candidate
@@ -293,8 +357,8 @@ def kernel_checks(bands, cfg, device, reps, caller='hiccups', keep=None):
             err = max(err, max_abs(b_k[p][t], b_t[p][t]))
     out['scan_pass_b'] = dict(
         max_abs_err=err,
-        ms=cuda_ms(lambda: cuda_scan.scan_pass_b(*args_b), reps),
-        plain_ms=cuda_ms(lambda: twin.scan_pass_b(*args_b), reps),
+        **kernel_time(lambda: cuda_scan.scan_pass_b(*args_b), reps),
+        plain_ms=kernel_time(lambda: twin.scan_pass_b(*args_b), reps)['ms'],
         library_ms=None,
         # three f32 bands, the bool mask and gate in, 4 f32 planes per p
         # out; per position and radius 10 adds for each of cband and eband
@@ -344,7 +408,8 @@ def kernel_checks(bands, cfg, device, reps, caller='hiccups', keep=None):
         lib = '' if r['library_ms'] is None else \
             f', library call {r["library_ms"]:.3f} ms'
         log(f'  {name}: kernel == twin (max abs err {r["max_abs_err"]}); '
-            f'kernel {r["ms"]:.3f} ms, twin {r["plain_ms"]:.3f} ms{lib}; '
+            f'kernel {r["ms"]:.4f} ms ({timing(r)}), twin '
+            f'{r["plain_ms"]:.3f} ms{lib}; '
             f'bound {r["bound_ms"]:.4f} ms ({r["bound_by"]}: {r["bytes"]} B, '
             f'{r["ops"]} ops), {r["bound_ms"] / r["ms"]:.1%} of it')
     return out
@@ -378,9 +443,9 @@ def dense_inputs(bands, w, bias_vec, d_lo):
     return dict(Md=Md, cMd=cMd, B=B, IR=IR_d, L=Lc, num=num_c)
 
 
-def oracle_table(dense, cfg, caller='hiccups'):
+def oracle_table(dense, cfg, caller='hiccups', res=RES):
     """The float64 oracle's table on the dense inputs of
-    :func:`dense_inputs`."""
+    :func:`dense_inputs` at bin size ``res``."""
     sys.path.insert(0, os.path.join(REPO, 'tests'))
     from oracle import reference_impl as oracle_mod
     args = (dense['Md'], dense['cMd'], dense['B'], dense['B'], dense['IR'],
@@ -388,12 +453,12 @@ def oracle_table(dense, cfg, caller='hiccups'):
     if caller == 'bhfdr':
         return oracle_mod.bhfdr(*args, pw=cfg.pw, ww=cfg.ww,
                                 sig=cfg.siglevel, maxww=cfg.maxww,
-                                maxapart=cfg.maxapart, res=RES,
+                                maxapart=cfg.maxapart, res=res,
                                 min_marginal_peaks=cfg.min_marginal_peaks,
                                 onlyanchor=cfg.only_anchors)
     return oracle_mod.hiccups(
         *args, pw=cfg.pw, ww=cfg.ww, sig=cfg.siglevel, sumq=cfg.sumq,
-        maxww=cfg.maxww, maxapart=cfg.maxapart, res=RES,
+        maxww=cfg.maxww, maxapart=cfg.maxapart, res=res,
         min_marginal_peaks=cfg.min_marginal_peaks,
         min_local_reads=cfg.min_local_reads, onlyanchor=cfg.only_anchors)
 
@@ -528,7 +593,8 @@ def deep_data(streams_a, device, counters):
         shapes[tag] = r
         log(f'[7] histogram ({tag}) B={r["B"]} n={r["n"]} S={r["S"]} '
             f'C={r["C"]}: kernel == twin == torch.bincount; kernel '
-            f'{r["ms"]:.4f} ms, twin {r["plain_ms"]:.3f} ms, torch.bincount '
+            f'{r["ms"]:.4f} ms ({timing(r)}), twin {r["plain_ms"]:.3f} ms, '
+            f'torch.bincount '
             f'{r["library_ms"]:.3f} ms; bound {r["bound_ms"]:.4f} ms '
             f'({r["bytes"]} B), {r["bound_ms"] / r["ms"]:.1%} of it')
     del streams_b, streams_c
@@ -622,8 +688,8 @@ def crossing_bands(seed=1):
 
 def staged(call, module, names):
     """``call()`` with each function ``names`` of ``module`` timed by the
-    host clock between device syncs; returns (wall s, {name: s}).  The
-    stages nest in no other stage."""
+    host clock between device syncs; returns (its result, wall s, {name:
+    s}).  The stages nest in no other stage."""
     import torch
     real = {n: getattr(module, n) for n in names}
     spent = dict.fromkeys(names, 0.0)
@@ -642,13 +708,13 @@ def staged(call, module, names):
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        call()
+        out = call()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
         for n in names:
             setattr(module, n, real[n])
-    return wall, spent
+    return out, wall, spent
 
 
 def crossing(device, counters):
@@ -694,7 +760,7 @@ def crossing(device, counters):
     def by_stage(what):
         full = gc.get_stats()[2]['collections']
         tracked, frozen = len(gc.get_objects()), gc.get_freeze_count()
-        wall, spent = staged(
+        _, wall, spent = staged(
             lambda: engine.bhfdr_chrom(bands, bcfg, device=device), engine,
             ('bands_to_device', '_scan_front', '_score_device_bhfdr_compact',
              '_bhfdr_to_host', 'local_clustering'))
@@ -749,11 +815,11 @@ def crossing(device, counters):
     reads_adds = sum(len(e.reads_rings) for e in plan)
     bg_adds = sum(len(e.bg_rings) for e in plan)
     out = dict(
-        scan_pass_a=dict(max_abs_err=0.0, ms=cuda_ms(
+        scan_pass_a=dict(max_abs_err=0.0, **kernel_time(
             lambda: cuda_scan.scan_pass_a(raw, cand, plan, p_list, thr), 3),
             **bound_ms(bytes_=5 * positions + 4 * len(plan),
                        ops=3 * maxw * positions + reads_adds * n_cand)),
-        scan_pass_b=dict(max_abs_err=0.0, ms=cuda_ms(
+        scan_pass_b=dict(max_abs_err=0.0, **kernel_time(
             lambda: cuda_scan.scan_pass_b(*args_b), 3),
             **bound_ms(bytes_=(13 + 16 * len(p_list)) * positions
                        + len(plan),
@@ -849,16 +915,22 @@ def ladder(bench_bands, cfg, bcfg, want_h, want_b, chr1, device, counters):
     return runs, crossing_recs
 
 
-def run_cli(module, args, log_file):
+def run_module(module, args):
     """``python -m hicpeaks_tpu_torch.cli.<module> args`` in a process of
-    its own from the checkout; raises on a non-zero exit (with the log's
-    tail); returns its wall in seconds."""
+    its own from the checkout; returns (the finished process, its wall in
+    seconds)."""
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [sys.executable, '-m', f'hicpeaks_tpu_torch.cli.{module}', *args,
-         '--logFile', log_file], cwd=REPO, capture_output=True, text=True,
+        [sys.executable, '-m', f'hicpeaks_tpu_torch.cli.{module}', *args],
+        cwd=REPO, capture_output=True, text=True,
         env=dict(os.environ, PYTHONPATH=REPO), timeout=600)
-    dt = time.perf_counter() - t0
+    return proc, time.perf_counter() - t0
+
+
+def run_cli(module, args, log_file):
+    """:func:`run_module` with ``--logFile log_file``; raises on a non-zero
+    exit (with the log's tail); returns its wall in seconds."""
+    proc, dt = run_module(module, [*args, '--logFile', log_file])
     if proc.returncode != 0:
         tail = open(log_file).read()[-3000:] if os.path.exists(log_file) \
             else ''
@@ -1084,6 +1156,7 @@ def genome_check(device, tmp, counters, sizes=HG38):
     from hicpeaks_tpu_torch.core.config import BHFDRConfig
     from hicpeaks_tpu_torch.io.coolerlite import (CoolerLite, binnify,
                                                   create_cooler_file)
+    from hicpeaks_tpu_torch.io.peakfile import write_bhfdr_bedpe
     from hicpeaks_tpu_torch.io.synth import synthesize_chrom
     from hicpeaks_tpu_torch.ops import ice
     span = 2_000_000 // RES
@@ -1168,17 +1241,275 @@ def genome_check(device, tmp, counters, sizes=HG38):
         ', '.join(f'{c} {r["ice_s"]:.3f}/{r["band_s"]:.2f}/'
                   f'{r["call_s"]:.3f}/{r["peaks"]}'
                   for c, r in per_chrom.items()))
+    # the calls as the pyBHFDR CLI writes them, phase 10a's loop list
+    with open(os.path.join(tmp, 'genome.bhfdr.bedpe'), 'w') as f:
+        for c in sizes:
+            write_bhfdr_bedpe(f, c, RES, results[c])
     return dict(chroms=len(sizes), bins=offset, pixels=n_px,
                 synth_s=t_synth, write_s=t_write, ice_s=t_ice,
                 call_s=t_call, peaks=n_peaks, peak_gib=peak_gb,
                 file_mib=size_mb, launches=launches, per_chrom=per_chrom)
 
 
+def same_bits(a, b):
+    """True when two float64 arrays or scalars hold the same bits."""
+    import numpy as np
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return a.shape == b.shape and a.tobytes() == b.tobytes()
+
+
+def apa_genome(device, tmp, counters):
+    """Phase 10a: APA of phase 9c's pyBHFDR calls on phase 9c's balanced
+    hg38 cooler, with ``apa_stats`` on the card and on the CPU (every
+    output bit-identical; walls by stage, peak device memory), then the
+    apa-analysis CLI on the card in a process of its own (its printed count
+    asserted; it draws the figure where matplotlib is installed)."""
+    import numpy as np
+    import torch
+    from hicpeaks_tpu_torch.cli import apa as apa_cli
+    from hicpeaks_tpu_torch.io.coolerlite import CoolerLite
+    from hicpeaks_tpu_torch.io.peakfile import parse_peakfile
+    uri = f'{os.path.join(tmp, "genome.cool")}::{RES}'
+    bedpe = os.path.join(tmp, 'genome.bhfdr.bedpe')
+    clr = CoolerLite(uri)
+    peaks = parse_peakfile(bedpe, 0)
+    n_loops = sum(len(v) for v in peaks.values())
+    runs = {}
+    for tag, dev in (('card', device), ('cpu', 'cpu')):
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters:
+            fn.launches = 0
+        got, wall, spent = staged(
+            lambda: apa_cli.apa_stats(clr, peaks, device=dev), apa_cli,
+            ('locate_peak_bins', 'chrom_windows'))
+        runs[tag] = r = dict(
+            wall_s=wall, locate_s=spent['locate_peak_bins'],
+            windows_s=spent['chrom_windows'],
+            rest_s=wall - sum(spent.values()),
+            peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+            launches={fn.__name__: fn.launches for fn in counters})
+        log(f'[10a] apa_stats on {dev}: {wall:.2f} s (locate_peak_bins '
+            f'{r["locate_s"]:.2f} s, window stage {r["windows_s"]:.3f} s, '
+            f'pixel and weight reads and scoring {r["rest_s"]:.2f} s), '
+            f'{got[0]} windows of {n_loops} loops, peak device memory '
+            f'{r["peak_gib"]:.3f} GiB, kernel launches {r["launches"]}')
+        r['out'] = got
+    card, cpu = runs['card'].pop('out'), runs['cpu'].pop('out')
+    if card[0] != cpu[0] or not all(same_bits(a, b)
+                                    for a, b in zip(card[1:], cpu[1:])):
+        raise AssertionError(f'[10a] APA on the card {card[0]} windows, '
+                             f'score {card[2]!r}; on the CPU {cpu[0]}, '
+                             f'{cpu[2]!r}: not bit-identical')
+    n, _, score, z, p, maxi = card
+    log(f'[10a] card and CPU bit-identical: {n} windows, avg (11, 11), '
+        f'score {score!r}, z {z!r}, p {p!r}, maxi {maxi!r}')
+    png = os.path.join(tmp, 'apa_card.png')
+    proc, wall = run_module('apa', ['-O', png, '-p', uri, '-I', bedpe,
+                                    '--device', device])
+    printed = proc.stdout.split()
+    if printed[:1] != [str(n)]:
+        raise AssertionError(f'[10a] the apa CLI printed {printed[:1]}, '
+                             f'apa_stats counted {n}:\n{proc.stderr[-3000:]}')
+    if (HAS_MATPLOTLIB and proc.returncode != 0) or (
+            not HAS_MATPLOTLIB
+            and "No module named 'matplotlib'" not in proc.stderr):
+        raise AssertionError(f'[10a] the apa CLI exited {proc.returncode}:'
+                             f'\n{proc.stderr[-3000:]}')
+    log(f'[10a] apa CLI --device {device} in {wall:.2f} s (a process of its '
+        f'own): printed {printed[0]}'
+        + ('' if HAS_MATPLOTLIB else '; no matplotlib here, no figure'))
+    return dict(loops=n_loops, windows=n, score=float(score), cli_s=wall,
+                **runs)
+
+
+CHR21 = 46_709_983   # hg38
+MULTIRES = (5000, 10000, 25000)
+# pyHICCUPS's (pw, ww) at each resolution, HiCCUPS's published settings
+# (Rao et al. 2014: p = 4, 2, 1 and i = 7, 5, 3 at 5, 10 and 25 kb)
+MULTIRES_PW_WW = {5000: (4, 7), 10000: (2, 5), 25000: (1, 3)}
+PLOT_REGION = (20_000_000, 24_000_000)   # phase 10c's peak-plot, chr21 bp
+
+
+def multires_check(device, tmp, counters):
+    """Phase 10b: one chr21 library binned at 5, 10 and 25 kb, balanced on
+    the card, the pyHICCUPS CLI on the card at each resolution (each bedpe
+    byte-identical to the in-process engine's on the cooler's bands, whose
+    table is held against the float64 oracle at 10 and 25 kb; at 5 kb, a
+    9,342-bin dense oracle over 2,011 diagonals is too slow), then the
+    combine-resolutions CLI against ``combine_annotations``."""
+    import numpy as np
+    from hicpeaks_tpu_torch.core import engine
+    from hicpeaks_tpu_torch.core.combine import combine_annotations
+    from hicpeaks_tpu_torch.core.config import HiccupsConfig
+    from hicpeaks_tpu_torch.io.coolerlite import (CoolerLite, binnify,
+                                                  create_cooler_file)
+    from hicpeaks_tpu_torch.io.peakfile import (parse_peakfile,
+                                                write_combined_bedpe,
+                                                write_hiccups_bedpe)
+    from hicpeaks_tpu_torch.io.synth import synthesize_chrom_multires
+    from hicpeaks_tpu_torch.ops import ice
+    from hicpeaks_tpu_torch.ops.band import bands_from_cooler
+    t0 = time.perf_counter()
+    per_res, loops, _ = synthesize_chrom_multires(
+        -(-CHR21 // MULTIRES[0]), fine_res=MULTIRES[0], resolutions=MULTIRES,
+        seed=21, depth=40.0, n_loops=300, decay=0.75, loop_strength=6.0,
+        max_loop_span_bins=380)
+    t_synth = time.perf_counter() - t0
+    cool = os.path.join(tmp, 'multires.cool')
+    out = dict(synth_s=t_synth, planted=len(loops), res={})
+    bedpes = []
+    for res in MULTIRES:
+        b1, b2, ct, n_bins = per_res[res]
+        pw, ww = MULTIRES_PW_WW[res]
+        cfg = HiccupsConfig(pw=(pw,), ww=(ww,))
+        uri = f'{cool}::{res}'
+        t0 = time.perf_counter()
+        create_cooler_file(uri, binnify({'21': CHR21}, res),
+                           [{'bin1_id': b1, 'bin2_id': b2, 'count': ct}],
+                           metadata={'onlyIntra': 'True'})
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ice.balance(CoolerLite(uri), device=device)
+        t_ice = time.perf_counter() - t0
+        bedpe = os.path.join(tmp, f'hiccups_{res}.bedpe')
+        wall = run_cli('peakcall', ['pyHICCUPS', '-O', bedpe, '-p', uri,
+                                    '--pw', str(pw), '--ww', str(ww),
+                                    '--device', device],
+                       os.path.join(tmp, f'hiccups_{res}.log'))
+        clr = CoolerLite(uri)
+        bands = bands_from_cooler(clr, '21', cfg.maxapart, cfg.maxww,
+                                  cfg.ww_min, keep_sparse=False)
+        table, t_call, launches = run_counted(
+            counters, lambda: engine.hiccups_chrom(bands, cfg, device=device))
+        idle = [n for n, c in launches.items() if c < 1]
+        if idle:
+            raise AssertionError(f'[10b] {res}: hiccups_chrom did not launch '
+                                 f'{idle}')
+        buf = io.StringIO()
+        write_hiccups_bedpe(buf, '21', res, table)
+        with open(bedpe) as f:
+            if f.read() != buf.getvalue():
+                raise AssertionError(f'[10b] {res}: the CLI\'s bedpe differs '
+                                     'from the in-process engine\'s')
+        bedpes.append(bedpe)
+        bar = 'the in-process engine'
+        if res != MULTIRES[0]:
+            t0 = time.perf_counter()
+            w = clr.weights('21')
+            bias = np.where(np.isnan(w), 0.0, 1.0 / w)
+            want = oracle_table(dense_inputs(bands, w, bias, cfg.ww_min),
+                                cfg, res=res)
+            max_rel = compare_to_oracle(table, want)
+            bar = (f'the float64 oracle ({time.perf_counter() - t0:.1f} s; '
+                   f'loci and geometry identical, max rel {max_rel:.3g})')
+        out['res'][res] = dict(bins=int(n_bins), pixels=int(b1.size),
+                               pw=pw, ww=ww, write_s=t_write, ice_s=t_ice,
+                               cli_s=wall, call_s=t_call, peaks=len(table),
+                               launches=launches, held_against=bar)
+        log(f'[10b] {res // 1000} kb (pw {pw}, ww {ww}): {n_bins} bins, '
+            f'{b1.size} pixels, written {t_write:.2f} s, ICE on the card '
+            f'{t_ice:.2f} s; pyHICCUPS CLI on the card {wall:.2f} s (a '
+            f'process of its own), {len(table)} peaks, bedpe byte-identical '
+            f'to the in-process engine\'s on the cooler\'s bands ({t_call:.2f}'
+            f' s, kernel launches {launches}); table held against {bar}')
+    combined = os.path.join(tmp, 'combined.bedpe')
+    proc, wall = run_module('combine', [
+        '-O', combined, '-p', *bedpes, '-R', *map(str, MULTIRES)])
+    if proc.returncode != 0:
+        raise AssertionError(f'[10b] combine exited {proc.returncode}:\n'
+                             f'{proc.stderr[-3000:]}')
+    # the CLI's defaults: -G 20000 -M 200000 --max-res 10000
+    kept = combine_annotations(
+        {r: parse_peakfile(b, 0) for r, b in zip(MULTIRES, bedpes)},
+        good_res=20000, mindis=200000, max_res=10000)
+    buf = io.StringIO()
+    write_combined_bedpe(buf, kept)
+    with open(combined) as f:
+        if f.read() != buf.getvalue():
+            raise AssertionError('[10b] the combine CLI\'s file differs from '
+                                 'combine_annotations\'')
+    # a peak finer than -G and farther apart than -M survives only when a
+    # coarser call confirms it
+    confirmed = sum(t[2] - t[1] < 20000 and t[4] - t[1] > 200000
+                    for t in kept)
+    by_res = {r: sum(t[2] - t[1] == r for t in kept) for r in MULTIRES}
+    if confirmed < 1:
+        raise AssertionError('[10b] no fine peak was confirmed by a coarser '
+                             'one')
+    out.update(combine_s=wall, combined=len(kept), confirmed=confirmed,
+               combined_by_res=by_res)
+    log(f'[10b] combine-resolutions CLI {wall:.2f} s: {len(kept)} loops '
+        f'({by_res}), {confirmed} fine peaks confirmed by coarser calls; '
+        f'file equal to combine_annotations\' on the three tables')
+    return out
+
+
+def figures_check(tmp):
+    """Phase 10c, where matplotlib is installed: the APA figure drawn in
+    process with --device cpu byte-identical to phase 10a's from the card,
+    and peak-plot of a 4 Mb region of chr21 at 10 kb with the combined
+    loops."""
+    import contextlib
+    from hicpeaks_tpu_torch.cli import apa as apa_cli
+    from hicpeaks_tpu_torch.cli import peakplot
+    card = os.path.join(tmp, 'apa_card.png')
+    cpu = os.path.join(tmp, 'apa_cpu.png')
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = apa_cli.main(['-O', cpu, '-p',
+                           f'{os.path.join(tmp, "genome.cool")}::{RES}', '-I',
+                           os.path.join(tmp, 'genome.bhfdr.bedpe'),
+                           '--device', 'cpu'])
+    t_apa = time.perf_counter() - t0
+    with open(card, 'rb') as f, open(cpu, 'rb') as g:
+        a, b = f.read(), g.read()
+    if rc != 0 or a != b:
+        raise AssertionError(f'[10c] the APA figures differ ({len(a)} and '
+                             f'{len(b)} bytes, rc {rc})')
+    region = os.path.join(tmp, 'region.png')
+    t0 = time.perf_counter()
+    rc = peakplot.main(['-O', region, '-p',
+                        f'{os.path.join(tmp, "multires.cool")}::10000', '-I',
+                        os.path.join(tmp, 'combined.bedpe'), '-C', '21',
+                        '-S', str(PLOT_REGION[0]),
+                        '-E', str(PLOT_REGION[1])])
+    t_plot = time.perf_counter() - t0
+    with open(region, 'rb') as f:
+        head = f.read(8)
+    if rc != 0 or head != b'\x89PNG\r\n\x1a\n':
+        raise AssertionError(f'[10c] peak-plot exited {rc}')
+    log(f'[10c] APA figure from the card and from the CPU: {len(a)} bytes '
+        f'each, byte-identical (CPU draw {t_apa:.2f} s); peak-plot of chr21 '
+        f'{PLOT_REGION[0]}-{PLOT_REGION[1]} at 10 kb with the combined loops '
+        f'in {t_plot:.2f} s ({os.path.getsize(region)} bytes)')
+    return dict(apa_png_bytes=len(a), apa_cpu_s=t_apa, peakplot_s=t_plot,
+                peakplot_png_bytes=os.path.getsize(region))
+
+
+def figures(device, tmp, counters):
+    """Phase 10: the figures' path on the card, from phase 9c's files."""
+    log(f'[10] the figures\' path; matplotlib on this host: '
+        f'{HAS_MATPLOTLIB}')
+    t0 = time.perf_counter()
+    out = dict(matplotlib=HAS_MATPLOTLIB,
+               apa=apa_genome(device, tmp, counters),
+               multires=multires_check(device, tmp, counters))
+    if HAS_MATPLOTLIB:
+        out['plots'] = figures_check(tmp)
+    else:
+        log('[10c] matplotlib is not installed on this host: the figures '
+            'were not drawn')
+    out['wall_s'] = time.perf_counter() - t0
+    log(f'[10] {out["wall_s"]:.1f} s')
+    return out
+
+
 def user_pipeline(device, counters):
     """Phase 9: the user pipeline on the card, every cooler read and
     written through the port's h5lite (the host has no h5py): (a) TXT ->
-    toCooler, (b) both CLIs from a cooler, (c) a genome.  Its files live
-    under build/smoke/ and are removed afterwards."""
+    toCooler, (b) both CLIs from a cooler, (c) a genome; then phase 10,
+    the figures' path on (c)'s files.  Its files live under build/smoke/
+    and are removed afterwards."""
     import shutil
     tmp = os.path.join(REPO, 'build', 'smoke')
     shutil.rmtree(tmp, ignore_errors=True)
@@ -1188,9 +1519,11 @@ def user_pipeline(device, counters):
         out = dict(ingest=ingest_check(device, tmp),
                    clis=cli_check(device, tmp, counters),
                    genome=genome_check(device, tmp, counters))
+        log(json.dumps({'user_pipeline': out}))
+        out['figures'] = figures(device, tmp, counters)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    log(json.dumps({'user_pipeline': out}))
+    log(json.dumps({'figures': out['figures']}))
     return out
 
 
@@ -1200,7 +1533,7 @@ def main():
     ap.add_argument('--crossing-only', action='store_true',
                     help='run phases 1 and 8f alone')
     ap.add_argument('--pipeline-only', action='store_true',
-                    help='run phases 1 and 9 alone')
+                    help='run phases 1, 9 and 10 alone')
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -1352,8 +1685,8 @@ def main():
     log(smi)
     # the main keys are the pyHICCUPS path at chr1 scale (phase 4); the
     # prefixed ones the other shapes, plans and the pyBHFDR caller
-    keys = ('max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
-            'library_ms')
+    keys = ('max_abs_err', 'ms', 'single_ms', 'batched_ms', 'plain_ms',
+            'bound_ms', 'bound_by', 'library_ms')
     records = []
     for name, source, replaces in KERNELS:
         rec = dict(name=name, route='cuda', source=source, replaces=replaces,
@@ -1368,15 +1701,18 @@ def main():
                        'launches'][name],
                    pipeline_bhfdr_launches=pipeline['clis']['pyBHFDR'][
                        'launches'][name],
-                   genome_launches=pipeline['genome']['launches'][name])
+                   genome_launches=pipeline['genome']['launches'][name],
+                   **{f'multires_{res}_launches': r['launches'][name]
+                      for res, r in pipeline['figures']['multires'][
+                          'res'].items()})
         for tag, r in (('bench', bench), ('multi_pair', multi),
                        ('bhfdr', chr1_b), ('bhfdr_bench', bench_b)):
             if name in r:
                 rec.update({f'{tag}_{k}': r[name][k] for k in keys})
         if name in crossing_recs:
             rec.update({f'crossing_{k}': crossing_recs[name][k]
-                        for k in ('max_abs_err', 'ms', 'bound_ms',
-                                  'bound_by')})
+                        for k in ('max_abs_err', 'ms', 'single_ms',
+                                  'batched_ms', 'bound_ms', 'bound_by')})
         if name == 'chunk_hist':
             for tag, r in shapes.items():
                 rec.update({f'shape_{tag}_{k}': r[k] for k in keys})

@@ -6,9 +6,10 @@ that keeps its layout and function names, so each module here names its
 counterpart.  Plain tensor code is PyTorch; the three Pallas kernels are
 CUDA kernels written for Hopper (``csrc/``), each with a plain PyTorch twin
 that runs for CPU tensors.  The command-line tools are
-``python -m hicpeaks_tpu_torch.cli.peakcall {pyHICCUPS|pyBHFDR}`` and
-``python -m hicpeaks_tpu_torch.cli.tocooler``; coolers are read and written
-by ``io/h5lite`` (numpy and zlib, no h5py).
+``python -m hicpeaks_tpu_torch.cli.peakcall {pyHICCUPS|pyBHFDR}``,
+``python -m hicpeaks_tpu_torch.cli.tocooler`` and
+``python -m hicpeaks_tpu_torch.cli.{apa,combine,peakplot}``; coolers are
+read and written by ``io/h5lite`` (numpy and zlib, no h5py).
 
 Rules the package keeps:
 

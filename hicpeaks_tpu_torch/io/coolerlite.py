@@ -260,6 +260,15 @@ class CoolerLite:
         vals = np.concatenate([data, data[off]])
         return sparse.csr_matrix((vals, (rows, cols)), shape=(n, n))
 
+    def fetch_dense_region(self, chrom, start, end, balance='weight'):
+        """Dense symmetric submatrix of [start, end) in bp (row-aligned to
+        bins), used by the plotting CLIs (scripts/peak-plot:99-103)."""
+        res = self.binsize
+        s0, e0 = start // res, int(np.ceil(end / res))
+        M = self.fetch_sparse(chrom, balance=balance)
+        sub = M[s0:e0, s0:e0].toarray()
+        return sub
+
     def write_weights(self, weights, stats=None, name='weight'):
         """Persist the balancing vector, mirroring utilities.py:426-431
         (the bins/weight column replaced, stats as attrs)."""

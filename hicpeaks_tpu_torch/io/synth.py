@@ -1,7 +1,7 @@
 """Synthetic Hi-C data generation.
 
-The port's copy of ``hicpeaks_tpu/io/synth.py``, trimmed to the
-single-resolution generator, the TXT writer and the cooler writer.
+The port's copy of ``hicpeaks_tpu/io/synth.py``: the single- and
+multi-resolution generators, the TXT writer and the cooler writer.
 
 The reference validates against a bundled K562 chr21 25Kb matrix
 (example/25K/21_21.txt per README.rst:119-163) which is absent from this
@@ -80,6 +80,37 @@ def synthesize_chrom(n_bins=1000, res=25000, n_loops=30, seed=0,
     count = np.concatenate(ct_list)
     order = np.lexsort((bin2, bin1))
     return bin1[order], bin2[order], count[order], loops, bias
+
+
+def synthesize_chrom_multires(n_bins_fine, fine_res=5000,
+                              resolutions=(5000, 10000, 25000), **kw):
+    """One set of contacts binned consistently at several resolutions.
+
+    The reference's multi-resolution workflow (combine-resolutions,
+    scripts/combine-resolutions:51-71) consumes peak lists called from the
+    SAME library binned at different sizes; testing it against independent
+    per-resolution syntheses would never produce genuine cross-resolution
+    matches.  Contacts are drawn once at ``fine_res`` and aggregated to each
+    coarser grid (coarse bin = fine bin * fine_res // res), which is exactly
+    how rebinning a fixed fragment-level dataset behaves.
+
+    Returns ({res: (bin1, bin2, count, n_bins)}, loops_fine, bias_fine).
+    """
+    b1, b2, ct, loops, bias = synthesize_chrom(
+        n_bins=n_bins_fine, res=fine_res, **kw)
+    out = {}
+    for res in resolutions:
+        if res % fine_res:
+            raise ValueError(f'{res} is not a multiple of {fine_res}')
+        f = res // fine_res
+        n_bins = -(-n_bins_fine // f)
+        a1 = (b1 // f).astype(np.int64)
+        a2 = (b2 // f).astype(np.int64)
+        key = a1 * n_bins + a2
+        uk, inv = np.unique(key, return_inverse=True)
+        c = np.bincount(inv, weights=ct.astype(np.float64))
+        out[res] = (uk // n_bins, uk % n_bins, c.astype(np.int64), n_bins)
+    return out, loops, bias
 
 
 def write_txt(path, bin1, bin2, count):

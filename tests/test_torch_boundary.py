@@ -1,5 +1,6 @@
 """The port's boundary: hicpeaks_tpu_torch (engines, API, the peak-calling
-CLIs from a cooler, toCooler) imports nothing of JAX, of the JAX package or
+CLIs from a cooler, toCooler, apa-analysis, combine-resolutions and
+peak-plot) imports nothing of JAX, of the JAX package or
 of h5py (coolers go through the port's io/h5lite), and a CUDA request on a
 machine without CUDA raises instead of running on the CPU.
 
@@ -80,9 +81,34 @@ _PROBE = textwrap.dedent('''
                    '--logFile', f'{tmp}/probe.log'])
     with open(f'{tmp}/probe.bedpe') as f:
         n_lines = len(f.read().splitlines())
+
+    # apa-analysis, combine-resolutions and peak-plot on that cooler and
+    # those calls (the APA count goes to stdout, so it is caught here)
+    import contextlib
+    import io
+    import hicpeaks_tpu_torch.cli.apa as apa
+    import hicpeaks_tpu_torch.cli.combine as combine
+    import hicpeaks_tpu_torch.cli.peakplot as peakplot
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc_apa = apa.main(['-O', f'{tmp}/apa.png', '-p', uri, '-I',
+                           f'{tmp}/probe.bedpe', '-M', '0', '--dpi', '50',
+                           '--device', 'cpu'])
+    n_windows = int(out.getvalue().split()[-1])
+    rc_comb = combine.main(['-O', f'{tmp}/combined.bedpe', '-p',
+                            f'{tmp}/probe.bedpe', f'{tmp}/probe.bedpe',
+                            '-R', '10000', '20000'])
+    with open(f'{tmp}/combined.bedpe') as f:
+        n_combined = len(f.read().splitlines())
+    rc_plot = peakplot.main(['-O', f'{tmp}/region.png', '-p', uri, '-I',
+                             f'{tmp}/probe.bedpe', '-C', '1', '-S', '0',
+                             '-E', '2000000', '--dpi', '50'])
+    n_png = os.path.getsize(f'{tmp}/apa.png') > 0 and \
+        os.path.getsize(f'{tmp}/region.png') > 0
     jaxpkg = sorted(m for m in sys.modules
                     if m.split('.')[0] in ('jax', 'hicpeaks_tpu', 'h5py'))
     print(len(table), len(btable), rc, n_lines, rc_toc, n_weights,
+          rc_apa, n_windows, rc_comb, n_combined, rc_plot, n_png,
           ','.join(jaxpkg) or '-')
 ''')
 
@@ -93,11 +119,12 @@ def test_port_never_imports_jax_or_h5py(tmp_path):
                           env=env, cwd=REPO, capture_output=True, text=True,
                           timeout=300)
     assert proc.returncode == 0, proc.stderr
-    n_peaks, n_bhfdr, rc, n_lines, rc_toc, n_weights, jaxpkg = \
-        proc.stdout.split()
+    (n_peaks, n_bhfdr, rc, n_lines, rc_toc, n_weights, rc_apa, n_windows,
+     rc_comb, n_combined, rc_plot, n_png, jaxpkg) = proc.stdout.split()
     assert int(n_peaks) > 0 and int(n_bhfdr) > 0
-    assert (rc, rc_toc) == ('0', '0')
+    assert (rc, rc_toc, rc_apa, rc_comb, rc_plot) == ('0',) * 5
     assert int(n_lines) > 0 and int(n_weights) > 400
+    assert int(n_windows) > 0 and int(n_combined) > 0 and n_png == 'True'
     assert jaxpkg == '-', f'modules of jax, hicpeaks_tpu or h5py: {jaxpkg}'
 
 

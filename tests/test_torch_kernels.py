@@ -272,3 +272,32 @@ def test_wrappers_reject_what_the_kernels_do_not_take(device):
         cuda_scan.scan_pass_a(raw.t(), cand.t(), plan, (2,), 8)
     with pytest.raises(TypeError):
         cuda_hist.chunk_hist(raw.reshape(-1), raw.reshape(1, -1), 4, 4)
+
+
+@pytest.mark.parametrize('w', [3, 5, 7])
+def test_apa_windows_on_the_card_bit_equal_cpu(device, w):
+    """APA's window stage has no kernel of its own, but its float64 torch
+    ops must give the CPU's bits on the card (window means are compared at
+    the last ulp): balanced band, NaN cells, windows off the matrix."""
+    from hicpeaks_tpu_torch.ops import apa_ops
+    rng = np.random.default_rng(w)
+    L, num, k = 900, 120, 4000
+    b1 = rng.integers(0, L, 60000)
+    b2 = np.minimum(b1 + rng.integers(0, num + 20, b1.size), L - 1)
+    key = np.unique(b1 * L + b2)
+    b1, b2 = key // L, key % L
+    ct = rng.poisson(20.0, b1.size) + 1
+    weights = rng.uniform(0.2, 3.0, L)
+    weights[rng.integers(0, L, 9)] = np.nan
+    xs = rng.integers(-3, L + 3, k)
+    ys = np.clip(xs + rng.integers(0, num, k), 0, L + 2)
+    out = {}
+    for dev in (device, torch.device('cpu')):
+        band, nanband = apa_ops.apa_band(b1, b2, ct, weights, L, num, dev)
+        norm, ok, means = apa_ops.apa_windows(
+            band, nanband, torch.from_numpy(xs).to(dev),
+            torch.from_numpy(ys).to(dev), w, L)
+        out[dev.type] = [t.cpu().numpy() for t in (norm, ok, means)]
+    assert out['cuda'][1].sum() > k // 4
+    for a, b in zip(out['cuda'], out['cpu']):
+        assert a.tobytes() == b.tobytes()
