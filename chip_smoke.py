@@ -87,16 +87,40 @@ It exits non-zero on any failure, and without a CUDA card.  Phases:
    coarser one; (c) where matplotlib is installed, the APA figure drawn
    from the CPU byte-identical to the card's, and peak-plot of 4 Mb of
    chr21 at 10 kb with the combined loops; printed as one ``figures`` JSON
-   line.
+   line;
+11. the multi-device layer on the one card (``parallel/``): (a) a mesh of
+   4 tiles, all on the card, in one process (run after phase 8): both
+   callers at the bench shape against phases 3 and 5's oracle tables;
+   on phase 4's and 6's chr1, the tiles' summed pass-A counts equal to
+   one device's, their stitched pass-B captures bit-equal and (pyHICCUPS)
+   their summed histogram equal in rows >= 1; the kernel launches of
+   each mesh call (4 of each scan, 4 or 0 histograms), the steady walls
+   of the mesh and one-device calls, the pyBHFDR mesh table == one
+   device's, the pyHICCUPS one with identical loci and geometry and its
+   stats within 1e-8 (the tiles set the lambda-chunk edge suspects aside
+   as one device does; JAX's mesh route does not), their count; (b)
+   ``ir_backend='device'`` on the chr1 pyHICCUPS mesh: loci and geometry
+   identical to the host IR's table.  Then, on phase 9's files before they
+   are removed: (c) two processes sharing the card on gloo
+   (``HICPEAKS_*``): ``call_bhfdr`` on 9c's genome, each process's table
+   == 9c's, and the pyBHFDR CLI in two processes, both bedpe files
+   byte-identical to 9c's; (d) a global mesh of 2 processes x 2 tiles on
+   9b's chr1 cooler: each process reads only its tiles' columns, IR
+   bit-equal to ``bands_from_cooler``'s, both callers' tables held to
+   (a)'s bars against one device's on the cooler's bands; one ``multi``
+   JSON line.  The tiles take turns on one card: the walls are the cost
+   of tiling, not a speed-up.
 
     python3 chip_smoke.py --crossing-only
 
 runs phases 1 and 8f alone, in a process that holds nothing else, and
 prints no result line; ``--pipeline-only`` does the same for phases 9 and
-10.
+10, and ``--multi-only`` for phases 1 and 11 (with phases 9b and 9c first,
+for their coolers).
 
 The line before the last is one JSON object with a record per kernel (its
-main keys from phase 4, the others prefixed by phase or histogram shape);
+main keys from phase 4, the others prefixed by phase or histogram shape,
+phase 11's by ``mesh4.`` and ``global2x2.``);
 the last line is {"ok": true, "device": {...}}.
 """
 import importlib.util
@@ -1055,10 +1079,12 @@ def ingest_check(device, tmp):
     return out
 
 
-def cli_check(device, tmp, counters, L=24900):
+def cli_check(device, tmp, counters, L=24900, keep=None):
     """Phase 9b: phase 4's chr1 (10 kb, L = 24,900, seed 42, 2000 loops)
     written as a cooler, balanced on the card, then both CLIs from it on
-    the card against the in-process engines on the same cooler's bands."""
+    the card against the in-process engines on the same cooler's bands.
+    A dict ``keep`` receives the cooler's URI (``chr1_uri``) and the
+    pyBHFDR CLI's bedpe path (``chr1_bhfdr_bedpe``)."""
     import numpy as np
     import torch
     from hicpeaks_tpu_torch.core import engine
@@ -1081,6 +1107,8 @@ def cli_check(device, tmp, counters, L=24900):
                        [{'bin1_id': b1, 'bin2_id': b2, 'count': ct}],
                        metadata={'onlyIntra': 'True'})
     t_write = time.perf_counter() - t0
+    if keep is not None:
+        keep['chr1_uri'] = uri
     t0 = time.perf_counter()
     px = CoolerLite(uri).pixels_for_chrom('1')
     t_read = time.perf_counter() - t0
@@ -1128,6 +1156,8 @@ def cli_check(device, tmp, counters, L=24900):
             raise AssertionError(f'[9b] the {tool} CLI\'s bedpe differs from '
                                  'the in-process engine\'s')
         out[tool] = dict(wall_s=wall, peaks=len(table), launches=launches)
+        if keep is not None and tool == 'pyBHFDR':
+            keep['chr1_bhfdr_bedpe'] = bedpe
         log(f'[9b] {tool} CLI on the card from the cooler in {wall:.2f} s (a '
             f'process of its own): {len(table)} peaks, bedpe byte-identical '
             f'to the in-process engine\'s (kernel launches {launches})')
@@ -1144,10 +1174,12 @@ HG38 = {  # chromosome lengths, GRCh38 (UCSC hg38.chrom.sizes)
     'X': 156_040_895}
 
 
-def genome_check(device, tmp, counters, sizes=HG38):
+def genome_check(device, tmp, counters, sizes=HG38, keep=None):
     """Phase 9c: a synthetic genome (HG38, 10 kb, pixels within 2 Mb)
     written by the port's writer, balanced on the card, then
-    ``call_bhfdr`` on the card; walls by stage and by chromosome."""
+    ``call_bhfdr`` on the card; walls by stage and by chromosome.  A dict
+    ``keep`` receives the cooler's URI, the table and the bedpe path
+    (``genome_uri``, ``genome_results``, ``genome_bedpe``)."""
     import logging
     import re
     import numpy as np
@@ -1242,9 +1274,13 @@ def genome_check(device, tmp, counters, sizes=HG38):
                   f'{r["call_s"]:.3f}/{r["peaks"]}'
                   for c, r in per_chrom.items()))
     # the calls as the pyBHFDR CLI writes them, phase 10a's loop list
-    with open(os.path.join(tmp, 'genome.bhfdr.bedpe'), 'w') as f:
+    bedpe = os.path.join(tmp, 'genome.bhfdr.bedpe')
+    with open(bedpe, 'w') as f:
         for c in sizes:
             write_bhfdr_bedpe(f, c, RES, results[c])
+    if keep is not None:
+        keep.update(genome_uri=uri, genome_results=results,
+                    genome_bedpe=bedpe)
     return dict(chroms=len(sizes), bins=offset, pixels=n_px,
                 synth_s=t_synth, write_s=t_write, ice_s=t_ice,
                 call_s=t_call, peaks=n_peaks, peak_gib=peak_gb,
@@ -1504,26 +1540,501 @@ def figures(device, tmp, counters):
     return out
 
 
-def user_pipeline(device, counters):
+MESH_TILES = 4   # phase 11's tiles on the one card
+
+
+def caller_plan(cfg, caller):
+    """(plan, p_list, thr, d_lo) of ``caller``'s path."""
+    from hicpeaks_tpu_torch.core import engine, poolplan
+    if caller == 'hiccups':
+        return (tuple(poolplan.hiccups_pool_plan(cfg.pw, cfg.ww, cfg.maxww)),
+                tuple(sorted(set(cfg.pw))), cfg.min_local_reads, min(cfg.ww))
+    return (tuple(poolplan.bhfdr_pool_plan(cfg.pw, cfg.ww, cfg.maxww)),
+            (cfg.pw,), engine._BHFDR_THR, cfg.ww)
+
+
+def single_front(bands, cfg, caller, device):
+    """One device's sheets, pass A, the host replay of the freeze gate and
+    pass B for ``caller`` ('hiccups' or 'bhfdr'): the inputs phase 11
+    holds the tiles against."""
+    import torch
+    from hicpeaks_tpu_torch.core import engine, poolplan
+    from hicpeaks_tpu_torch.ops import cuda_scan, score
+    plan, p_list, thr, d_lo = caller_plan(cfg, caller)
+    d_hi = cfg.maxapart // bands.res
+    total = bands.candidate_total(d_lo, d_hi)
+    ops = engine.bands_to_device(bands, device)
+    raw, cband, eband, Bprod, gap_drop, cand = score.build_sheets(
+        ops['raw'], ops['w0'], ops['bias'], ops['IR'], ops['gap'],
+        bands.ww_min, bands.L, d_lo, d_hi, d_lo)
+    counts = cuda_scan.scan_pass_a(raw, cand, plan, p_list, thr)
+    if caller == 'hiccups':
+        decision = poolplan.emulate_freeze_hiccups(
+            plan, counts.cpu().numpy(), total, cfg.ww)
+    else:
+        decision = poolplan.emulate_freeze_bhfdr(plan, counts.cpu().numpy(),
+                                                 total)
+    allowed = torch.tensor(decision.allowed, dtype=torch.bool, device=device)
+    caps = cuda_scan.scan_pass_b(raw, cband, eband, cand, allowed, plan,
+                                 p_list, thr)
+    return dict(raw=raw, cband=cband, eband=eband, cand=cand, Bprod=Bprod,
+                IR=ops['IR'], L=bands.L, plan=plan, p_list=p_list, thr=thr,
+                counts=counts, allowed=allowed, caps=caps)
+
+
+def hiccups_observed(f, cfg):
+    """E, O, lambda chunks and their edge suspects of every background of
+    the batched pyHICCUPS scorer (each (p, w) pair's K, then its Y), on
+    one device's front ``f``."""
+    import torch
+    from hicpeaks_tpu_torch.core import engine
+    from hicpeaks_tpu_torch.ops import score
+    pairs = list(zip(cfg.pw, cfg.ww))
+    BSV = torch.stack([f['caps'][p][0] for p, _ in pairs]
+                      + [f['caps'][p][2] for p, _ in pairs])
+    BEV = torch.stack([f['caps'][p][1] for p, _ in pairs]
+                      + [f['caps'][p][3] for p, _ in pairs])
+    wis = torch.tensor([w for _, w in pairs] * 2, dtype=torch.int32,
+                       device=f['raw'].device)[:, None, None]
+    E, O, _, _, scored, _ = score.expected_observed(
+        f['raw'], f['cband'], f['IR'], f['Bprod'], BSV, BEV, wis, f['cand'],
+        f['L'])
+    cid, _, valid = score.lambda_chunks(E, scored)
+    sus = score.lambda_suspects(E, scored, engine._chunk_margin(f['plan']))
+    return O, cid, valid, sus
+
+
+def suspect_count(f, cfg):
+    """(pixels, lambda chunks) of the batched pyHICCUPS scorer's edge
+    suspects on one device's front ``f``: the pixels that the float64
+    completion moves to their float64 chunk, on one device and on the
+    tiles alike (JAX's mesh route sets none aside)."""
+    _, cid, _, sus = hiccups_observed(f, cfg)
+    return int(sus.sum()), len(cid[sus].unique())
+
+
+def mesh_kernel_checks(bands, cfg, caller, mesh, device):
+    """Phase 11a's kernel checks: the tiles' summed pass-A counts equal
+    one device's, their stitched pass-B captures are bit-equal to its
+    captures, and (pyHICCUPS) the tiles' summed histogram equals its
+    histogram in rows >= 1.  Returns one device's front."""
+    import torch
+    from hicpeaks_tpu_torch.core import engine
+    from hicpeaks_tpu_torch.ops import cuda_hist, score
+    from hicpeaks_tpu_torch.parallel import tiles
+    f = single_front(bands, cfg, caller, device)
+    sh = {k: tiles.shard_band(f[k], mesh)
+          for k in ('raw', 'cband', 'eband', 'cand')}
+    counts = tiles.scan_pass_a_sharded(sh['raw'], sh['cand'], f['plan'],
+                                       f['p_list'], f['thr'], mesh)
+    if not torch.equal(counts, f['counts']):
+        raise AssertionError(f'[11a] {caller}: the tiles\' pass-A counts '
+                             f'{counts.tolist()} != {f["counts"].tolist()}')
+    outs = tiles.scan_pass_b_sharded(
+        sh['raw'], sh['cband'], sh['eband'], sh['cand'], f['allowed'],
+        f['plan'], f['p_list'], f['thr'], mesh)
+    Lp = f['raw'].shape[1]
+    for p in f['p_list']:
+        for t, name in enumerate(('KS', 'KE', 'YS', 'YE')):
+            got = torch.cat([o[p][t] for o in outs], -1)[:, :Lp]
+            if not torch.equal(got, f['caps'][p][t]):
+                raise AssertionError(f'[11a] {caller}: stitched capture p={p} '
+                                     f'{name} differs by up to '
+                                     f'{max_abs(got, f["caps"][p][t])}')
+    del outs
+    msg = (f'pass-A counts equal ({int(counts.sum())} frozen), pass-B '
+           f'captures bit-equal')
+    if caller == 'hiccups':
+        O, cid, valid, _ = hiccups_observed(f, cfg)
+        o_cap = engine._bh_plan(bands.max_count)
+        S, C = score.chunk_rows(o_cap, cfg.siglevel), o_cap + 1
+        oc, cid0 = score.chunk_pack(O, cid, valid, S, C)
+        want = cuda_hist.chunk_hist(oc, cid0, S, C)
+        got = tiles.chunk_hist_sharded(
+            tiles.shard_band(O, mesh), tiles.shard_band(cid, mesh),
+            tiles.shard_band(valid, mesh), S, C, mesh)
+        if not torch.equal(got[1:], want[1:]):
+            raise AssertionError(f'[11a] the tiles\' histogram differs in '
+                                 f'rows >= 1 by up to '
+                                 f'{max_abs(got[1:], want[1:])}')
+        cell = 'equal' if torch.equal(got, want) else 'differs'
+        msg += (f', histogram equal in rows >= 1 ({int(want[1:].sum())} '
+                f'pixels; cell (0, 0) {cell})')
+    log(f'[11a] {caller} on {mesh.size} tiles against one device: {msg}')
+    return f
+
+
+def mesh_tiles(device, counters, bench, chr1_h, chr1_b):
+    """Phase 11a and 11b: four tiles of one single-process mesh on the
+    card.  ``bench`` = (bands, hcfg, bcfg, oracle pyHICCUPS table, oracle
+    pyBHFDR table) of phases 3 and 5; ``chr1_h``/``chr1_b`` = (bands, cfg,
+    n_cand) of phases 4 and 6."""
+    from hicpeaks_tpu_torch.core import engine
+    from hicpeaks_tpu_torch.parallel.mesh import make_tile_mesh
+    mesh = make_tile_mesh(devices=[device] * MESH_TILES)
+    out = {}
+    want = dict(scan_pass_a=MESH_TILES, scan_pass_b=MESH_TILES)
+
+    def held(launches, hist):
+        expect = dict(want, chunk_hist=hist)
+        if launches != expect:
+            raise AssertionError(f'[11a] mesh launches {launches}, want '
+                                 f'{expect}')
+
+    # the bench shape against the float64 oracle (phases 3 and 5's bar)
+    bands, hcfg, bcfg, want_h, want_b = bench
+    table, _, launches = run_counted(
+        counters, lambda: engine.hiccups_chrom(bands, hcfg, mesh=mesh))
+    held(launches, MESH_TILES)
+    rel_h = compare_to_oracle(table, want_h)
+    btable, _, launches = run_counted(
+        counters, lambda: engine.bhfdr_chrom(bands, bcfg, mesh=mesh))
+    held(launches, 0)
+    rel_b = compare_to_oracle(btable, want_b)
+    if bhfdr_bedpe_lines(btable) != bhfdr_bedpe_lines(want_b):
+        raise AssertionError('[11a] bench pyBHFDR mesh bedpe lines differ '
+                             'from the oracle\'s')
+    log(f'[11a] bench shape on {mesh.size} tiles: pyHICCUPS {len(table)} '
+        f'peaks, max rel {rel_h:.3g}; pyBHFDR {len(btable)} peaks, max rel '
+        f'{rel_b:.3g}, sorted bedpe lines identical; against the oracle')
+
+    # chr1: kernels, launches, walls, tables against one device's
+    bands, cfg, n_cand = chr1_h
+    f = mesh_kernel_checks(bands, cfg, 'hiccups', mesh, device)
+    n_sus, n_chunks = suspect_count(f, cfg)
+    del f
+    _, single = steady_walls(
+        counters, lambda: engine.hiccups_chrom(bands, cfg, device=device),
+        n_cand, '[11a] chr1 pyHICCUPS, one device')
+    launches, meshed = steady_walls(
+        counters, lambda: engine.hiccups_chrom(bands, cfg, mesh=mesh),
+        n_cand, f'[11a] chr1 pyHICCUPS, {mesh.size} tiles')
+    held(launches, MESH_TILES)
+    out['hiccups_launches'] = launches
+    rel = compare_to_oracle(meshed, single)
+    log(f'[11a] chr1 pyHICCUPS: {len(meshed)} peaks, loci and geometry '
+        f'identical to one device\'s, max rel stat diff {rel:.3g}; {n_sus} '
+        f'edge suspects in {n_chunks} lambda chunks, set aside and '
+        'corrected on the tiles as on one device')
+    out.update(hiccups_suspects=n_sus, hiccups_suspect_chunks=n_chunks,
+               hiccups_max_rel=rel)
+
+    # 11b: IR from the tiles
+    dev_ir = engine.hiccups_chrom(bands, cfg, mesh=mesh, ir_backend='device')
+    rel_ir = compare_to_oracle(dev_ir, meshed, rtol=float('inf'))
+    log(f'[11b] ir_backend=\'device\' on {mesh.size} tiles: loci and '
+        f'geometry identical to the host IR\'s table, max rel stat diff '
+        f'{rel_ir:.3g}')
+    out['device_ir_max_rel'] = rel_ir
+
+    bands, bcfg, n_cand = chr1_b
+    mesh_kernel_checks(bands, bcfg, 'bhfdr', mesh, device)
+    _, single = steady_walls(
+        counters, lambda: engine.bhfdr_chrom(bands, bcfg, device=device),
+        n_cand, '[11a] chr1 pyBHFDR, one device')
+    launches, meshed = steady_walls(
+        counters, lambda: engine.bhfdr_chrom(bands, bcfg, mesh=mesh),
+        n_cand, f'[11a] chr1 pyBHFDR, {mesh.size} tiles')
+    held(launches, 0)
+    out['bhfdr_launches'] = launches
+    if meshed != single or list(meshed) != list(single):
+        raise AssertionError('[11a] chr1 pyBHFDR mesh table differs from '
+                             'one device\'s')
+    log(f'[11a] chr1 pyBHFDR: {len(meshed)} peaks, the mesh table == one '
+        'device\'s, in the same order')
+    return out
+
+
+def _payload(tables):
+    return {c: [[list(k), list(map(float, v))] for k, v in t.items()]
+            for c, t in tables.items()}
+
+
+def _unpayload(payload):
+    return {c: {tuple(k): tuple(v) for k, v in t} for c, t in
+            payload.items()}
+
+
+def mesh_worker(mode, uri, out_path, device):
+    """One process of phase 11c ('api') or 11d ('global'), started by
+    :func:`run_group` with the HICPEAKS_* variables set, on its own
+    ``device`` (a bare 'cuda' is the process's card)."""
+    sys.path.insert(0, REPO)
+    import numpy as np
+    from hicpeaks_tpu_torch import api
+    from hicpeaks_tpu_torch.core import engine
+    from hicpeaks_tpu_torch.core.config import BHFDRConfig, HiccupsConfig
+    from hicpeaks_tpu_torch.io.coolerlite import CoolerLite
+    from hicpeaks_tpu_torch.ops import cuda_hist, cuda_scan
+    from hicpeaks_tpu_torch.parallel import launch, multihost
+    counters = (cuda_scan.scan_pass_a, cuda_scan.scan_pass_b,
+                cuda_hist.chunk_hist)
+    if not launch.maybe_initialize_distributed():
+        raise RuntimeError('mesh worker: HICPEAKS_* variables not set')
+    _, rank = launch.world()
+    device = launch.process_device(device)
+    out = dict(rank=rank, device=str(device),
+               transport=launch.device_transport()[0])
+    if mode == 'api':
+        tables, wall, launches = run_counted(
+            counters, lambda: api.call_bhfdr(uri, BHFDRConfig(),
+                                             device=device))
+        out.update(wall_s=wall, launches=launches, tables=_payload(tables))
+    else:
+        mesh = multihost.global_tile_mesh([device, device])
+        clr = CoolerLite(uri)
+        reads = []
+        by_range = CoolerLite.pixels_for_bin1_range
+
+        def recording(self, chrom, c0, c1):
+            reads.append((int(c0), int(c1)))
+            return by_range(self, chrom, c0, c1)
+
+        CoolerLite.pixels_for_bin1_range = recording
+        CoolerLite.pixels_for_chrom = None       # a whole read would raise
+        for kind, cfg, call in (
+                ('bhfdr', BHFDRConfig(), engine.bhfdr_chrom),
+                ('hiccups', HiccupsConfig(), engine.hiccups_chrom)):
+            t0 = time.perf_counter()
+            bands = multihost.sharded_bands_from_cooler(
+                clr, '1', cfg.maxapart, cfg.maxww, cfg.ww_min, mesh)
+            t_band = time.perf_counter() - t0
+            table, wall, launches = run_counted(
+                counters, lambda: call(bands, cfg, mesh=mesh))
+            t0 = time.perf_counter()
+            call(bands, cfg, mesh=mesh)
+            steady = time.perf_counter() - t0
+            out[kind] = dict(
+                tables=_payload({'1': table}), band_s=t_band, wall_s=wall,
+                steady_s=steady, launches=launches,
+                IR=np.asarray(bands.IR, np.float64).tolist(),
+                spans=sorted(bands.raw_spans))
+        out['reads'] = reads
+    launch.shutdown_distributed()
+    with open(out_path, 'w') as f:
+        json.dump(out, f)
+    return 0
+
+
+def run_group(argv_of, tag, n=2):
+    """``n`` processes of one torch.distributed group on this host, the
+    argv of process r ``argv_of(r)``; raises unless every one exits 0;
+    returns each one's wall in seconds."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(('localhost', 0))
+        port = sock.getsockname()[1]
+    procs, t0 = [], time.perf_counter()
+    for r in range(n):
+        env = dict(os.environ, PYTHONPATH=REPO,
+                   HICPEAKS_COORDINATOR=f'localhost:{port}',
+                   HICPEAKS_NUM_PROCESSES=str(n), HICPEAKS_PROCESS_ID=str(r))
+        procs.append(subprocess.Popen(argv_of(r), cwd=REPO, env=env,
+                                      stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True))
+    walls, logs = [None] * n, [None] * n
+    try:
+        for r, p in enumerate(procs):
+            logs[r] = p.communicate(timeout=600)
+            walls[r] = time.perf_counter() - t0
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            raise AssertionError(f'{tag}: process {r} exited {p.returncode}:'
+                                 f'\n{logs[r][1][-3000:]}')
+    return walls
+
+
+def mesh_processes(device, tmp, files, counters):
+    """Phase 11c and 11d: two processes sharing the card on gloo, on phase
+    9b's chr1 cooler and phase 9c's genome cooler (``files``: the keep
+    dict of :func:`cli_check` and :func:`genome_check`)."""
+    import numpy as np
+    from hicpeaks_tpu_torch.core import engine
+    from hicpeaks_tpu_torch.core.config import BHFDRConfig, HiccupsConfig
+    from hicpeaks_tpu_torch.io.coolerlite import CoolerLite
+    from hicpeaks_tpu_torch.ops.band import bands_from_cooler
+    me = os.path.abspath(__file__)
+    out = {}
+
+    # 11c: chromosome data-parallelism, the API then the CLI
+    uri = files['genome_uri']
+    walls = run_group(lambda r: [sys.executable, me, '--mesh-worker', 'api',
+                                 uri, os.path.join(tmp, f'api.{r}.json'),
+                                 device], '[11c] call_bhfdr')
+    single = files['genome_results']
+    got = [json.load(open(os.path.join(tmp, f'api.{r}.json')))
+           for r in range(2)]
+    for g in got:
+        t = _unpayload(g['tables'])
+        if t != single or list(t) != list(single) or any(
+                list(t[c]) != list(single[c]) for c in single):
+            raise AssertionError(f'[11c] process {g["rank"]}\'s genome table '
+                                 'differs from the single process\'s')
+    log(f'[11c] call_bhfdr in 2 processes on {got[0]["device"]} '
+        f'({got[0]["transport"]}): each returns the genome table of phase '
+        f'9c, in its order; calls {got[0]["wall_s"]:.2f} / '
+        f'{got[1]["wall_s"]:.2f} s, processes {walls[0]:.1f} / '
+        f'{walls[1]:.1f} s; launches {got[0]["launches"]} / '
+        f'{got[1]["launches"]}')
+    out['api'] = dict(call_s=[g['wall_s'] for g in got], process_s=walls,
+                      launches=[g['launches'] for g in got])
+    walls = run_group(
+        lambda r: [sys.executable, '-m', 'hicpeaks_tpu_torch.cli.peakcall',
+                   'pyBHFDR', '-O', os.path.join(tmp, f'cli.{r}.bedpe'),
+                   '-p', uri, '--device', device, '--logFile',
+                   os.path.join(tmp, f'cli.{r}.log')], '[11c] pyBHFDR CLI')
+    want = open(files['genome_bedpe'], 'rb').read()
+    for r in range(2):
+        if open(os.path.join(tmp, f'cli.{r}.bedpe'), 'rb').read() != want:
+            raise AssertionError(f'[11c] process {r}\'s bedpe differs from '
+                                 'the single process\'s')
+    log(f'[11c] the pyBHFDR CLI in 2 processes: both bedpe files '
+        f'byte-identical to phase 9c\'s ({len(want.splitlines())} lines); '
+        f'processes {walls[0]:.1f} / {walls[1]:.1f} s')
+    out['cli_process_s'] = walls
+
+    # 11d: a global mesh, 2 processes x 2 tiles, per-process ingestion
+    uri = files['chr1_uri']
+    walls = run_group(lambda r: [sys.executable, me, '--mesh-worker',
+                                 'global', uri,
+                                 os.path.join(tmp, f'global.{r}.json'),
+                                 device], '[11d] global mesh')
+    got = [json.load(open(os.path.join(tmp, f'global.{r}.json')))
+           for r in range(2)]
+    clr = CoolerLite(uri)
+    spans = [sorted(tuple(s) for s in g['bhfdr']['spans']) for g in got]
+    cols = sorted(spans[0] + spans[1])
+    if cols[0][0] != 0 or any(a1 != b0 for (_, b0), (a1, _) in
+                              zip(cols, cols[1:])):
+        raise AssertionError(f'[11d] the processes\' spans {spans} do not '
+                             'tile the chromosome')
+    for g, own in zip(got, spans):
+        if not g['reads'] or not all(any(a <= c0 and c1 <= b
+                                         for a, b in own)
+                                     for c0, c1 in g['reads']):
+            raise AssertionError(f'[11d] process {g["rank"]} read '
+                                 f'{g["reads"]} outside its spans {own}')
+    out['global'] = {}
+    for kind, cfg, call in (('bhfdr', BHFDRConfig(), engine.bhfdr_chrom),
+                            ('hiccups', HiccupsConfig(),
+                             engine.hiccups_chrom)):
+        bands = bands_from_cooler(clr, '1', cfg.maxapart, cfg.maxww,
+                                  cfg.ww_min, keep_sparse=False)
+        for g in got:
+            if not np.array_equal(np.asarray(g[kind]['IR'], np.float32),
+                                  bands.IR, equal_nan=True):
+                raise AssertionError(f'[11d] {kind}: process {g["rank"]}\'s '
+                                     'IR is not bands_from_cooler\'s')
+        single = call(bands, cfg, device=device)
+        tables = [_unpayload(g[kind]['tables'])['1'] for g in got]
+        if tables[0] != tables[1] or list(tables[0]) != list(tables[1]):
+            raise AssertionError(f'[11d] {kind}: the processes\' tables '
+                                 'differ')
+        if kind == 'bhfdr':
+            if tables[0] != single or list(tables[0]) != list(single):
+                raise AssertionError('[11d] pyBHFDR global-mesh table '
+                                     'differs from one device\'s')
+            note = 'the table == one device\'s'
+        else:
+            rel = compare_to_oracle(tables[0], single)
+            note = (f'loci and geometry identical to one device\'s, max rel '
+                    f'stat diff {rel:.3g}')
+        rec = [dict((k, g[kind][k]) for k in ('band_s', 'wall_s', 'steady_s',
+                                              'launches')) for g in got]
+        out['global'][kind] = rec
+        log(f'[11d] {kind} on a global mesh of 2 processes x 2 tiles '
+            f'({got[0]["transport"]}): IR bit-equal to bands_from_cooler\'s '
+            f'on both, {len(tables[0])} peaks, {note}; per process: band '
+            f'build {rec[0]["band_s"]:.2f} / {rec[1]["band_s"]:.2f} s, calls '
+            f'{rec[0]["wall_s"]:.2f} / {rec[1]["wall_s"]:.2f} s, steady '
+            f'{rec[0]["steady_s"]:.3f} / {rec[1]["steady_s"]:.3f} s, '
+            f'launches {rec[0]["launches"]} / {rec[1]["launches"]}')
+    log(f'[11d] processes {walls[0]:.1f} / {walls[1]:.1f} s; spans '
+        f'{spans[0]} | {spans[1]}')
+    out['global_process_s'] = walls
+    # the CLI's --mesh-devices 2 in a group: JAX's make_tile_mesh(2) over
+    # the group's devices, a global mesh of one tile a process
+    walls = run_group(
+        lambda r: [sys.executable, '-m', 'hicpeaks_tpu_torch.cli.peakcall',
+                   'pyBHFDR', '-O', os.path.join(tmp, f'gcli.{r}.bedpe'),
+                   '-p', uri, '--pw', '2', '--ww', '5', '--device', device,
+                   '--mesh-devices', '2', '--logFile',
+                   os.path.join(tmp, f'gcli.{r}.log')],
+        '[11d] pyBHFDR CLI --mesh-devices 2')
+    want = open(files['chr1_bhfdr_bedpe'], 'rb').read()
+    for r in range(2):
+        if open(os.path.join(tmp, f'gcli.{r}.bedpe'), 'rb').read() != want:
+            raise AssertionError(f'[11d] process {r}\'s --mesh-devices 2 '
+                                 'bedpe differs from phase 9b\'s')
+        if 'global 2-tile mesh across 2 processes' not in open(
+                os.path.join(tmp, f'gcli.{r}.log')).read():
+            raise AssertionError(f'[11d] process {r}\'s CLI did not take '
+                                 'the global mesh')
+    log(f'[11d] the pyBHFDR CLI with --mesh-devices 2 in 2 processes: a '
+        f'global mesh of one tile a process, both bedpe files '
+        f'byte-identical to phase 9b\'s ({len(want.splitlines())} lines); '
+        f'processes {walls[0]:.1f} / {walls[1]:.1f} s')
+    out['global_cli_process_s'] = walls
+    return out
+
+
+def user_pipeline(device, counters, multi=True):
     """Phase 9: the user pipeline on the card, every cooler read and
     written through the port's h5lite (the host has no h5py): (a) TXT ->
     toCooler, (b) both CLIs from a cooler, (c) a genome; then phase 10,
-    the figures' path on (c)'s files.  Its files live under build/smoke/
-    and are removed afterwards."""
+    the figures' path on (c)'s files, and with ``multi`` phase 11c and
+    11d on (b)'s and (c)'s.  Its files live under build/smoke/ and are
+    removed afterwards."""
     import shutil
     tmp = os.path.join(REPO, 'build', 'smoke')
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)
+    files = {}
     try:
         log('[9] the user pipeline: TXT -> toCooler -> CLIs -> bedpe')
         out = dict(ingest=ingest_check(device, tmp),
-                   clis=cli_check(device, tmp, counters),
-                   genome=genome_check(device, tmp, counters))
+                   clis=cli_check(device, tmp, counters, keep=files),
+                   genome=genome_check(device, tmp, counters, keep=files))
         log(json.dumps({'user_pipeline': out}))
         out['figures'] = figures(device, tmp, counters)
+        log(json.dumps({'figures': out['figures']}))
+        if multi:
+            out['multi'] = mesh_processes(device, tmp, files, counters)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    log(json.dumps({'figures': out['figures']}))
+    return out
+
+
+def multi_inputs():
+    """Phase 11's inputs without phases 2-8: the bench shape's bands and
+    the float64 oracle's tables (phases 3 and 5), and chr1's bands for
+    both callers (phases 4 and 6)."""
+    from hicpeaks_tpu_torch.core.config import BHFDRConfig, HiccupsConfig
+    num = 2_000_000 // RES + MAXWW + 1
+    bench, w, bias_vec = synth_bands(
+        8192, 2_000_000, seed=0, n_loops=200, span=min(200, num - MAXWW - 2),
+        lane_pad=128)
+    hcfg = HiccupsConfig(pw=PW, ww=WW, maxww=MAXWW, maxapart=2_000_000)
+    bcfg = BHFDRConfig(pw=PW[0], ww=WW[0], maxww=MAXWW, maxapart=2_000_000)
+    dense = dense_inputs(bench, w, bias_vec, min(WW))
+    want_h = oracle_table(dense, hcfg)
+    want_b = oracle_table(dense, bcfg, caller='bhfdr')
+    del dense
+    out = dict(bench=(bench, hcfg, bcfg, want_h, want_b))
+    for tag, cfg in (('chr1_h', HiccupsConfig(pw=PW, ww=WW, maxww=MAXWW,
+                                              maxapart=10_000_000)),
+                     ('chr1_b', bcfg)):
+        num = cfg.maxapart // RES + MAXWW + 1
+        bands, _, _ = synth_bands(24900, cfg.maxapart, seed=42, n_loops=2000,
+                                  span=num - MAXWW - 54, lane_pad=4096)
+        d_lo = min(cfg.ww) if tag == 'chr1_h' else cfg.ww
+        out[tag] = (bands, cfg,
+                    bands.candidate_total(d_lo, cfg.maxapart // RES))
     return out
 
 
@@ -1534,7 +2045,15 @@ def main():
                     help='run phases 1 and 8f alone')
     ap.add_argument('--pipeline-only', action='store_true',
                     help='run phases 1, 9 and 10 alone')
+    ap.add_argument('--multi-only', action='store_true',
+                    help='run phases 1 and 11 alone (11c and 11d on the '
+                    'coolers of phases 9b and 9c, made first)')
+    ap.add_argument('--mesh-worker', nargs=4,
+                    metavar=('MODE', 'URI', 'OUT', 'DEVICE'),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.mesh_worker:
+        return mesh_worker(*args.mesh_worker)
     import torch
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; the port does not run its '
@@ -1566,7 +2085,28 @@ def main():
         if args.crossing_only:
             crossing(device, counters)
         if args.pipeline_only:
-            user_pipeline(device, counters)
+            user_pipeline(device, counters, multi=False)
+        log(smi)
+        return 0
+    if args.multi_only:
+        import shutil
+        t0 = time.perf_counter()
+        ins = multi_inputs()
+        log(f'[11] inputs synthesized in {time.perf_counter() - t0:.1f} s')
+        mesh_out = mesh_tiles(device, counters, ins['bench'],
+                              ins['chr1_h'], ins['chr1_b'])
+        del ins
+        tmp = os.path.join(REPO, 'build', 'smoke')
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+        files = {}
+        try:
+            cli_check(device, tmp, counters, keep=files)
+            genome_check(device, tmp, counters, keep=files)
+            mesh_out.update(mesh_processes(device, tmp, files, counters))
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        log(json.dumps({'multi': mesh_out}))
         log(smi)
         return 0
 
@@ -1619,6 +2159,7 @@ def main():
         counters, lambda: engine.hiccups_chrom(bands, cfg, device=device),
         n_cand, '[4] hiccups_chrom')
     chr1_run = (bands, cfg, chr1_table)
+    mesh_h = (bands, cfg, n_cand)
     idle = [n for n, c in launches.items() if c < 1]
     if idle:
         raise AssertionError(f'main path did not launch {idle}')
@@ -1663,6 +2204,7 @@ def main():
     b_launches, _ = steady_walls(
         counters, lambda: engine.bhfdr_chrom(bands, bcfg, device=device),
         n_cand, '[6] bhfdr_chrom')
+    mesh_b = (bands, bcfg, n_cand)
     idle = [n for n in ('scan_pass_a', 'scan_pass_b') if b_launches[n] < 1]
     if idle:
         raise AssertionError(f'pyBHFDR path did not launch {idle}')
@@ -1679,8 +2221,18 @@ def main():
         bcfg, want_h, want_b, chr1_run, device, counters)
     del chr1_run
 
-    # --- 9: the user pipeline from TXT to bedpe, coolers through h5lite ---
+    # --- 11a, 11b: four tiles of one mesh on the card ---
+    mesh_out = mesh_tiles(device, counters,
+                       (bench_bands, HiccupsConfig(pw=PW, ww=WW, maxww=MAXWW,
+                                                   maxapart=2_000_000),
+                        bcfg, want_h, want_b), mesh_h, mesh_b)
+    del mesh_h, mesh_b
+
+    # --- 9, 10: the user pipeline from TXT to bedpe, coolers through
+    # h5lite, and the figures; then 11c and 11d on its coolers ---
     pipeline = user_pipeline(device, counters)
+    mesh_out.update(pipeline['multi'])
+    log(json.dumps({'multi': mesh_out}))
 
     log(smi)
     # the main keys are the pyHICCUPS path at chr1 scale (phase 4); the
@@ -1704,7 +2256,16 @@ def main():
                    genome_launches=pipeline['genome']['launches'][name],
                    **{f'multires_{res}_launches': r['launches'][name]
                       for res, r in pipeline['figures']['multires'][
-                          'res'].items()})
+                          'res'].items()},
+                   **{'mesh4.launches': mesh_out['hiccups_launches'][name],
+                      'mesh4.bhfdr_launches':
+                          mesh_out['bhfdr_launches'][name],
+                      'global2x2.launches': [
+                          g['launches'][name]
+                          for g in mesh_out['global']['hiccups']],
+                      'global2x2.bhfdr_launches': [
+                          g['launches'][name]
+                          for g in mesh_out['global']['bhfdr']]})
         for tag, r in (('bench', bench), ('multi_pair', multi),
                        ('bhfdr', chr1_b), ('bhfdr_bench', bench_b)):
             if name in r:

@@ -1,5 +1,6 @@
-"""hicpeaks-tpu on PyTorch and CUDA: the pyHICCUPS and pyBHFDR callers for
-one GPU.
+"""hicpeaks-tpu on PyTorch and CUDA: the pyHICCUPS and pyBHFDR callers on
+one GPU, on a mesh of column tiles, or across torch.distributed processes
+(``parallel/``).
 
 A port of ``hicpeaks_tpu`` (the JAX package, which stays the reference)
 that keeps its layout and function names, so each module here names its

@@ -1,19 +1,30 @@
-"""Genome-wide pyHICCUPS and pyBHFDR API on one device (PyTorch).
+"""Genome-wide pyHICCUPS and pyBHFDR API (PyTorch).
 
 Port of ``hicpeaks_tpu/api.py``'s ``_run``, ``call_hiccups`` and
-``call_bhfdr``: chromosomes stream through one device with per-chromosome
+``call_bhfdr``: chromosomes stream through the device with per-chromosome
 durable checkpoints (JSON peak tables named ``<kind>.<chrom>.json``; a
 rerun resumes from them) and a prefetch thread that builds the next
 chromosome's host bands while the device works on the current one.  The
 consumer does the host-to-device copy (``engine.bands_to_device``).  The
-``jax.distributed`` branches and the profiler capture are not ported.
+profiler capture is not ported.
+
+``mesh`` (``parallel.mesh.TileMesh``) runs each chromosome on column
+tiles.  In a process group (``parallel.launch.maybe_initialize_distributed``)
+the work is split as in JAX (``api.py:77-239``): without a mesh that spans
+processes, each process calls its share of the chromosomes
+(``parallel.multihost.assign_chroms``), on its own device or its local
+mesh, and the tables are all-gathered; with a global mesh every process
+works every chromosome on its own tiles, reading only their columns
+(``parallel.multihost.sharded_bands_from_cooler``), with the bands built
+in the same order on every process and no prefetch thread.  Either way
+every process returns the whole genome's table, in the cooler's
+chromosome order.
 
 ``call_hiccups``/``call_bhfdr`` take the JAX API's parameters in its
-order, then the keyword ``device``: ``mesh`` other than None raises
-NotImplementedError (multi-GPU is ROADMAP.md, Queue 1 item 13), and
-``profile_dir``, ``shape_bucket``, ``row_bucket`` and ``max_count_floor``
-are logged as having no effect (they shared XLA executables or drove the
-JAX profiler; eager PyTorch compiles nothing).
+order, then the keyword ``device``; ``profile_dir``, ``shape_bucket``,
+``row_bucket`` and ``max_count_floor`` are logged as having no effect
+(they shared XLA executables or drove the JAX profiler; eager PyTorch
+compiles nothing).
 """
 from __future__ import annotations
 
@@ -30,6 +41,10 @@ from .cli.common import chrom_selected
 from .core import engine
 from .core.config import BHFDRConfig, HiccupsConfig
 from .ops.band import bands_from_cooler
+from .parallel.launch import world
+from .parallel.mesh import check_mesh
+from .parallel.multihost import (assign_chroms, gather_tables,
+                                 sharded_bands_from_cooler)
 
 log = logging.getLogger(__name__)
 
@@ -43,7 +58,8 @@ def _ckpt_path(checkpoint_dir, kind, chrom):
 def _save_ckpt(path, table):
     payload = {','.join(map(str, k)): list(map(float, v))
                for k, v in table.items()}
-    tmp = f'{path}.tmp.{os.getpid()}'
+    tmp = f'{path}.tmp.{os.getpid()}'   # unique per process: the processes
+                                        # of a global mesh write together
     with open(tmp, 'w') as f:
         json.dump(payload, f)
     os.replace(tmp, path)
@@ -78,7 +94,7 @@ def _run(kind, cooler_uri, cfg, chroms, device, checkpoint_dir, dtype,
          scan_backend, bh_backend, check, mesh, **no_effect):
     from .io.coolerlite import CoolerLite
 
-    engine._refuse_mesh(mesh)
+    check_mesh(mesh)
     for name, value in no_effect.items():
         if value != _NO_EFFECT[name]:
             log.info('%s=%r has no effect on this engine', name, value)
@@ -88,8 +104,20 @@ def _run(kind, cooler_uri, cfg, chroms, device, checkpoint_dir, dtype,
     results = {}
     if checkpoint_dir:
         os.makedirs(checkpoint_dir, exist_ok=True)
+    selected = _selected_chroms(clr, chroms)
+    my_chroms = selected
+    nproc, rank = world()
+    global_mesh = mesh is not None and mesh.spans_processes
+    if nproc > 1 and not global_mesh:
+        my_chroms = assign_chroms(selected, nproc, rank)
+        log.info('multi-process: process %d/%d handles chromosomes %s',
+                 rank, nproc, my_chroms)
+    elif global_mesh:
+        log.info('multi-process: global %d-tile mesh across %d processes; '
+                 'chromosomes are tile-sharded, ingestion is per process',
+                 mesh.size, nproc)
     todo = []
-    for key in _selected_chroms(clr, chroms):
+    for key in my_chroms:
         label = key.lstrip('chr')
         if checkpoint_dir:
             ck = _ckpt_path(checkpoint_dir, kind, label)
@@ -99,9 +127,24 @@ def _run(kind, cooler_uri, cfg, chroms, device, checkpoint_dir, dtype,
                 continue
         todo.append(key)
 
+    def build(key):
+        t0 = time.perf_counter()
+        if global_mesh:
+            bands = sharded_bands_from_cooler(
+                clr, key, cfg.maxapart, cfg.maxww, cfg.ww_min, mesh,
+                dtype=dtype, weight_name=cfg.clr_weight_name)
+        else:
+            bands = bands_from_cooler(clr, key, cfg.maxapart, cfg.maxww,
+                                      cfg.ww_min, dtype=dtype,
+                                      weight_name=cfg.clr_weight_name,
+                                      keep_sparse=False)
+        return bands, time.perf_counter() - t0
+
     # Pipelined ingestion: one producer thread builds the next chromosome's
     # host bands (HDF5 read + native scatter) while the device works on the
-    # current one; maxsize=1 bounds in-flight bands to two chromosomes.
+    # current one; maxsize=1 bounds in-flight bands to two chromosomes.  A
+    # global mesh builds in the consumer instead: its ingestion issues
+    # collectives, which must run in the same order on every process.
     band_q = queue.Queue(maxsize=1)
     stop = threading.Event()
 
@@ -109,23 +152,24 @@ def _run(kind, cooler_uri, cfg, chroms, device, checkpoint_dir, dtype,
         for key in todo:
             if stop.is_set():
                 return
-            t0 = time.perf_counter()
             try:
-                bands = bands_from_cooler(clr, key, cfg.maxapart, cfg.maxww,
-                                          cfg.ww_min, dtype=dtype,
-                                          weight_name=cfg.clr_weight_name,
-                                          keep_sparse=False)
+                bands, t_band = build(key)
             except BaseException as exc:   # re-raised on the consumer side
-                band_q.put((key, None, time.perf_counter() - t0, exc))
+                band_q.put((key, None, 0.0, exc))
                 return
-            band_q.put((key, bands, time.perf_counter() - t0, None))
+            band_q.put((key, bands, t_band, None))
 
-    producer = threading.Thread(target=_producer,
-                                name=f'{kind}-band-loader', daemon=True)
-    producer.start()
+    producer = None
+    if not global_mesh:
+        producer = threading.Thread(target=_producer,
+                                    name=f'{kind}-band-loader', daemon=True)
+        producer.start()
     try:
-        for _ in todo:
-            key, bands, t_band, exc = band_q.get()
+        for key_i in todo:
+            if global_mesh:
+                key, (bands, t_band), exc = key_i, build(key_i), None
+            else:
+                key, bands, t_band, exc = band_q.get()
             label = key.lstrip('chr')
             if exc is not None:
                 raise exc
@@ -134,34 +178,44 @@ def _run(kind, cooler_uri, cfg, chroms, device, checkpoint_dir, dtype,
             attempt = 0
             while True:
                 try:
-                    table = caller(bands, cfg, device,
+                    table = caller(bands, cfg, device, mesh=mesh,
                                    scan_backend=scan_backend,
                                    bh_backend=bh_backend, check=check)
                     break
                 except Exception:
                     attempt += 1
-                    if attempt > _MAX_RETRIES:
+                    # a global mesh's processes retry nothing: one
+                    # process's retry would run collectives the others
+                    # do not
+                    if attempt > _MAX_RETRIES or global_mesh:
                         raise
                     log.exception('Chrom:%s, attempt %d failed; retrying',
                                   label, attempt)
                     time.sleep(5 * attempt)
             dt = time.perf_counter() - t0
             log.info('Chrom:%s, %d band pixels scored in %.2fs '
-                     '(band build %.2fs, pipelined; %.0f pixels/s), '
+                     '(band build %.2fs, %s; %.0f pixels/s), '
                      '%d peaks', label, n_cand, dt, t_band,
+                     'per process' if global_mesh else 'pipelined',
                      n_cand / max(dt, 1e-9), len(table))
             results[label] = table
             if checkpoint_dir:
+                # every process of a global mesh writes the same table
+                # (atomic replace, pid-unique temporary name)
                 _save_ckpt(_ckpt_path(checkpoint_dir, kind, label), table)
     finally:
         # unblock the producer if we leave early: it finishes at most the
         # in-flight build, then exits
         stop.set()
-        while producer.is_alive():
+        while producer is not None and producer.is_alive():
             try:
                 band_q.get_nowait()
             except queue.Empty:
                 time.sleep(0.05)
+    if nproc > 1 and not global_mesh:
+        gathered = gather_tables(results)
+        results = {key.lstrip('chr'): gathered[key.lstrip('chr')]
+                   for key in selected}
     return results
 
 
@@ -172,8 +226,8 @@ def call_hiccups(cooler_uri, cfg: HiccupsConfig = None, chroms=('#', 'X'),
                  max_count_floor=None, *, device):
     """-> {chrom_label: {(x_bp, y_bp): 10-tuple}} (see
     ``engine.hiccups_chrom``, whose ``scan_backend``, ``bh_backend`` and
-    ``check`` these are), every chromosome on ``device``.  The parameters
-    are the JAX API's (module docstring)."""
+    ``check`` these are), every chromosome on ``device``, or on ``mesh``'s
+    tiles.  The parameters are the JAX API's (module docstring)."""
     return _run('hiccups', cooler_uri, cfg or HiccupsConfig(), chroms,
                 device, checkpoint_dir, dtype, scan_backend, bh_backend,
                 check, mesh, profile_dir=profile_dir,
@@ -187,8 +241,8 @@ def call_bhfdr(cooler_uri, cfg: BHFDRConfig = None, chroms=('#', 'X'),
                bh_backend='auto', check=False, row_bucket=8,
                max_count_floor=None, *, device):
     """-> {chrom_label: {(x_bp, y_bp): 7-tuple}} (see
-    ``engine.bhfdr_chrom``), every chromosome on ``device``; the
-    parameters are those of :func:`call_hiccups`."""
+    ``engine.bhfdr_chrom``), every chromosome on ``device`` or on
+    ``mesh``'s tiles; the parameters are those of :func:`call_hiccups`."""
     return _run('bhfdr', cooler_uri, cfg or BHFDRConfig(), chroms, device,
                 checkpoint_dir, dtype, scan_backend, bh_backend, check, mesh,
                 profile_dir=profile_dir, shape_bucket=shape_bucket,

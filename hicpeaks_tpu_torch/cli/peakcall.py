@@ -10,13 +10,23 @@ flags), built from copies of its argument helpers, plus ``--device``
 (default ``cuda``; without CUDA the run fails, it never falls back to the
 CPU).  The output files are the JAX CLIs' byte for byte.
 
-Every flag value of the JAX CLIs is served on one device (the engine's
-routes, ``hicpeaks_tpu_torch.core.engine.resolve_route``) except
-``--mesh-devices`` other than 0, which fails with NotImplementedError
-naming ROADMAP.md, Queue 1 item 13 (multi-GPU).  Every ``--scan-backend``
-runs the CUDA scan kernels on the card (``validate`` also runs their plain
-PyTorch twins and cross-checks them), and ``--checkify`` the port's checks
-(``engine.hiccups_chrom``).
+Every flag value of the JAX CLIs is served (the engine's routes,
+``hicpeaks_tpu_torch.core.engine.resolve_route``).  Every
+``--scan-backend`` runs the CUDA scan kernels on the card (``validate``
+also runs their plain PyTorch twins and cross-checks them), and
+``--checkify`` the port's checks (``engine.hiccups_chrom``).
+``--mesh-devices N`` cuts each chromosome into N column tiles: on the
+first N cards (``parallel.mesh.make_tile_mesh``), or N tiles on the CPU
+with ``--device cpu``.  With ``HICPEAKS_COORDINATOR``,
+``HICPEAKS_NUM_PROCESSES`` and ``HICPEAKS_PROCESS_ID`` set, every process
+runs the tool, joins the process group
+(``parallel.launch.maybe_initialize_distributed``) and writes the whole
+genome's bedpe to its ``-O``.  Without ``--mesh-devices`` each process
+calls its share of the chromosomes on its own device; with it, as in
+JAX, the mesh is the first N devices of the group, one a process in rank
+order (``parallel.multihost.global_tile_mesh``), so every process works
+every chromosome on its tile (N must be at least the number of
+processes, so that each owns a tile).
 ``--shape-bucket`` (it shared XLA executables) and ``--nproc`` are accepted
 and have no effect.
 
@@ -31,8 +41,11 @@ import sys
 from .. import __version__
 from ..api import call_bhfdr, call_hiccups
 from ..core.config import BHFDRConfig, HiccupsConfig
-from ..core.engine import MESH_ITEM
 from ..io.peakfile import write_bhfdr_bedpe, write_hiccups_bedpe
+from ..parallel.launch import (maybe_initialize_distributed, process_device,
+                               shutdown_distributed, world)
+from ..parallel.mesh import make_tile_mesh
+from ..parallel.multihost import global_tile_mesh
 from .common import echo_arguments, setup_logging
 
 
@@ -127,13 +140,29 @@ def _add_engine_args(parser):
                    'A CUDA device without CUDA is an error.')
 
 
-def _refuse_unserved(args):
-    """NotImplementedError for ``--mesh-devices`` other than 0, the one
-    flag value this engine does not serve, naming its ROADMAP item."""
-    if args.mesh_devices:
-        raise NotImplementedError(
-            f'--mesh-devices {args.mesh_devices}: multi-GPU runs are '
-            + MESH_ITEM)
+def _mesh(args, in_group, logger):
+    """The tile mesh of ``--mesh-devices`` (None for 0).  In a process
+    group it is JAX's ``make_tile_mesh(N)`` over the group's devices: the
+    first N of one device a process, in rank order (a global mesh); N
+    below the number of processes leaves a process without a tile and
+    raises on every process.  Outside a group: the first N cards, or N CPU
+    tiles for ``--device cpu``."""
+    n = args.mesh_devices
+    if not n:
+        return None
+    if in_group:
+        nproc, _ = world()
+        if n < nproc:
+            raise ValueError(f'--mesh-devices {n} in a group of {nproc} '
+                             'processes: every process needs a tile')
+        if n > nproc:
+            logger.warning('--mesh-devices %d: the group has %d devices, '
+                           'one a process; the mesh has %d tiles', n, nproc,
+                           nproc)
+        return global_tile_mesh([args.device])
+    if args.device.type == 'cpu':
+        return make_tile_mesh(devices=['cpu'] * n)
+    return make_tile_mesh(n)
 
 
 def _run(parser, args, logger, call, cfg, writer):
@@ -145,16 +174,20 @@ def _run(parser, args, logger, call, cfg, writer):
         if value != parser.get_default(flag):
             logger.info('--%s %s has no effect on this engine',
                         flag.replace('_', '-'), value)
+    in_group = maybe_initialize_distributed()
+    args.device = process_device(args.device)
+    mesh = _mesh(args, in_group, logger)
     logger.info('Loading Hi-C data ...')
     res = CoolerLite(args.path).binsize
     logger.info('Calling Peaks ...')
     results = call(args.path, cfg, chroms=args.chroms, device=args.device,
-                   checkpoint_dir=args.checkpoint_dir,
+                   mesh=mesh, checkpoint_dir=args.checkpoint_dir,
                    scan_backend=args.scan_backend,
                    bh_backend=args.bh_backend, check=args.checkify)
     with open(args.output, 'w') as out:
         for label, table in results.items():
             writer(out, label, res, table)
+    shutdown_distributed()
     logger.info('Done!')
 
 
@@ -189,8 +222,8 @@ def hiccups_main(argv=None):
                    help='Accepted for compatibility; chromosomes run one '
                    'after another on the device.')
     g.add_argument('--mesh-devices', type=int, default=0,
-                   help='Accepted for compatibility; only 0 (one device) '
-                   'is served.')
+                   help='Shard each chromosome band across this many '
+                   'devices (column tiles; CPU tiles with --device cpu).')
     g.add_argument('--checkpoint-dir', default=None,
                    help='Persist per-chromosome peak tables here and resume '
                    'finished chromosomes on rerun.')
@@ -199,7 +232,6 @@ def hiccups_main(argv=None):
     if args.output is None:
         parser.print_help()
         return 1
-    _refuse_unserved(args)
 
     logger = setup_logging(args.logFile)
     disarm = _arm_watchdog(args.watchdog)
@@ -250,8 +282,8 @@ def bhfdr_main(argv=None):
     g.add_argument('--nproc', type=int, default=1,
                    help='Accepted for compatibility.')
     g.add_argument('--mesh-devices', type=int, default=0,
-                   help='Accepted for compatibility; only 0 (one device) '
-                   'is served.')
+                   help='Shard each chromosome band across this many '
+                   'devices (column tiles; CPU tiles with --device cpu).')
     g.add_argument('--checkpoint-dir', default=None,
                    help='Persist per-chromosome peak tables here and resume '
                    'finished chromosomes on rerun.')
@@ -260,7 +292,6 @@ def bhfdr_main(argv=None):
     if args.output is None:
         parser.print_help()
         return 1
-    _refuse_unserved(args)
 
     logger = setup_logging(args.logFile, rotating=True)
     disarm = _arm_watchdog(args.watchdog)

@@ -24,8 +24,22 @@ in where the gate is computed and in the scorer:
 
 On the host: the freeze replay, the float64 completion
 (:mod:`.hostcomplete`), the fold gates, the cross-pair merge and the
-clustering (:mod:`.clustering`).  A device mesh is not ported
-(ROADMAP.md, Queue 1 item 13): ``mesh`` raises NotImplementedError.
+clustering (:mod:`.clustering`).
+
+With a ``mesh`` (``parallel.mesh.TileMesh``) every route runs on column
+tiles (:mod:`..parallel.tiles`): the sheets are cut into tiles, pass A and
+pass B run once per tile on its halo-extended slab, the freeze gate is
+replayed on the host (JAX never takes its fused route on a mesh), and the
+batched pyHICCUPS scorer and the pyBHFDR global-BH scorer run tile by tile
+with their histogram and counts summed over the tiles and the compactions
+merged in row-major order (:func:`_mesh_hiccups_scored`,
+:func:`_bhfdr_tiles`); unlike JAX's mesh route, the tiles set the
+lambda-chunk edge suspects aside, so a mesh table is the single-device
+table (:func:`_hiccups_tiles`).  The routes that need
+the whole chromosome at once (segmented BH, the dense scorer, checkify)
+gather the tiles' sheets and captures onto the mesh's first device and run
+the single-device scorer there; JAX leaves that step to GSPMD's
+collectives.
 """
 from __future__ import annotations
 
@@ -39,6 +53,8 @@ from ..ops import scan as scan_ops
 from ..ops import score as score_ops
 from ..ops.band import ChromBands
 from ..ops.hostexact import ExactCtx
+from ..parallel import tiles
+from ..parallel.mesh import check_mesh
 from . import poolplan
 from .clustering import local_clustering
 from .config import BHFDRConfig, HiccupsConfig
@@ -58,22 +74,18 @@ _BHFDR_THR = 16   # pyBHFDR's fixed local-reads freeze threshold
 SCAN_BACKENDS = ('auto', 'pallas', 'jnp', 'validate', 'pallas-interpret')
 BH_BACKENDS = ('auto', 'host', 'device')
 
-MESH_ITEM = 'ROADMAP.md, Queue 1 item 13'
-
 
 def resolve_device(device):
     """``device`` as a torch.device; a CUDA device on a machine without
     CUDA raises RuntimeError rather than running anywhere else."""
+    if device is None:
+        raise TypeError('a device is required (or a mesh, on whose devices '
+                        'the tiles run)')
     device = torch.device(device)
     if device.type == 'cuda' and not torch.cuda.is_available():
         raise RuntimeError(f'device {device} requested but CUDA is not '
                            'available')
     return device
-
-
-def _refuse_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError(f'multi-GPU (mesh) runs are {MESH_ITEM}')
 
 
 def bands_to_device(bands: ChromBands, device):
@@ -116,7 +128,8 @@ class Route(NamedTuple):
     check: bool        # checkify: the per-background scorer with checks
 
 
-def resolve_route(scan_backend, bh_backend, check, total, max_count=None):
+def resolve_route(scan_backend, bh_backend, check, total, max_count=None,
+                  mesh=None):
     """The route of ``hicpeaks_tpu``'s ``_resolve_scan_impl`` and
     ``_bh_plan`` (``engine.py:609-625,900-925``) as JAX takes it on a
     backend that is not a TPU.  ``max_count`` is None for pyBHFDR, whose
@@ -134,7 +147,8 @@ def resolve_route(scan_backend, bh_backend, check, total, max_count=None):
       (pyBHFDR); 'host' is the dense scorer with float64 BH on the host.
     * ``check`` takes the per-background scorer with device BH.
     * A candidate total with ``10 * total >= _GATE_LIMIT`` takes the
-      host gate."""
+      host gate, and so does every route on a ``mesh`` (JAX's fused route
+      tests ``mesh is None``, ``engine.py:1401,1505``)."""
     if scan_backend not in SCAN_BACKENDS:
         raise ValueError(f'scan_backend {scan_backend!r} not in '
                          f'{SCAN_BACKENDS}')
@@ -147,7 +161,7 @@ def resolve_route(scan_backend, bh_backend, check, total, max_count=None):
         o_cap = _bh_plan(max_count)
     batched = (not check and bh == 'device'
                and (max_count is None or o_cap is not None))
-    device_gate = (batched and scan != 'validate'
+    device_gate = (batched and scan != 'validate' and mesh is None
                    and 10 * total < _GATE_LIMIT)
     return Route(scan, device_gate, batched, bh, o_cap, bool(check))
 
@@ -258,9 +272,12 @@ def _scan_front(ops, bands, plan, p_list, thr, d_lo, d_hi, gap_s, route,
 
 def _exact_capable(bands):
     """Whether the bands carry the float64 vectors and the host raw slab
-    that float64 completion reads."""
+    that float64 completion reads: the whole slab, or this process's
+    column spans of bands ingested per process (their window cells are
+    summed exactly across processes, ``ops/hostexact``)."""
     return (getattr(bands, 'w064', None) is not None
-            and isinstance(getattr(bands, 'raw', None), np.ndarray))
+            and (isinstance(getattr(bands, 'raw', None), np.ndarray)
+                 or getattr(bands, 'raw_spans', None) is not None))
 
 
 def _exact_ctx(bands, plan, allowed, thr):
@@ -282,6 +299,47 @@ def _gather_flat_shared(a, d, x):
     return a.reshape(-1)[d.to(torch.int64) * a.shape[1] + x]
 
 
+def _observe_batched(sh, BSV, BEV, wis_t, c0=0, check=False):
+    """The batched scorer's first stage over B backgrounds: E, O, ICE,
+    Fold, the scored mask, prod [B, num_p, Lp] and the lambda chunks (cid,
+    valid).  ``c0``: the sheets' first chromosome column (a tile's)."""
+    E, O, ICE, Fold, scored, prod = score_ops.expected_observed(
+        sh.raw, sh.cband, sh.IR, sh.Bprod, BSV, BEV, wis_t[:, None, None],
+        sh.cand, sh.L, c0=c0)
+    if check:
+        _check_finite(E=E, O=O, ICE=ICE, Fold=Fold)
+    cid, _rv, valid = score_ops.lambda_chunks(E, scored)
+    return E, O, ICE, Fold, scored, prod, cid, valid
+
+
+def _keep_batched(sh, obs, thr2, sig, o_cap, exact_mode, margin,
+                  check=False):
+    """The batched scorer's second stage, from the keep thresholds ``thr2``
+    [B, S] of the (summed) histogram: the keep mask (BH, gap filter, and
+    with ``exact_mode`` the lambda-chunk edge suspects set aside) and its
+    row-major compaction.  Returns ((cnt, d, x, O, ICE, Fold, cid) with a
+    leading [B] axis, the suspect bundle (cnt, d, x, cid, O, gap) or ())."""
+    E, O, ICE, Fold, scored, _prod, cid, valid = obs
+    keep = scored & score_ops.chunk_keep(O, cid, valid, thr2, sig,
+                                         o_cap + 1) & ~sh.gap_drop
+    gb, gu = _gather_flat_b, _gather_flat_shared
+    sus_bundle = ()
+    if exact_mode:
+        sus = score_ops.lambda_suspects(E, scored, margin)
+        keep = keep & ~sus
+        cnt_s, d_s, x_s = score_ops.compact_mask_batched(sus)
+        cid_s = torch.where(gb(valid, d_s, x_s), gb(cid, d_s, x_s), 0)
+        O_s = torch.clamp(torch.floor(gu(O, d_s, x_s)), 0, o_cap) \
+            .to(torch.int32)
+        sus_bundle = (cnt_s, d_s, x_s, cid_s, O_s, gu(sh.gap_drop, d_s, x_s))
+    cnt, d_idx, x_idx = score_ops.compact_mask_batched(keep)
+    if check:
+        _check_in_band(cnt, d_idx, x_idx, O.shape[0], sh.L)
+    cid_g = torch.where(gb(valid, d_idx, x_idx), gb(cid, d_idx, x_idx), 0)
+    return (cnt, d_idx, x_idx, gu(O, d_idx, x_idx), gu(ICE, d_idx, x_idx),
+            gb(Fold, d_idx, x_idx), cid_g), sus_bundle
+
+
 def _compact_batched(sh, BSV, BEV, wis_t, sig, o_cap, exact_mode, margin,
                      s_rows, check=False):
     """All B backgrounds (every (p, w) pair x {K, Y}, or one) scored in
@@ -292,36 +350,17 @@ def _compact_batched(sh, BSV, BEV, wis_t, sig, o_cap, exact_mode, margin,
     Fold, cid, hist [B, S, C], prod [B, num_p, Lp], suspects) with the
     suspect bundle (cnt, d, x, cid, O, gap, thr) or () without
     ``exact_mode``."""
-    wi_b = wis_t[:, None, None]
-    E, O, ICE, Fold, scored, prod = score_ops.expected_observed(
-        sh.raw, sh.cband, sh.IR, sh.Bprod, BSV, BEV, wi_b, sh.cand, sh.L)
-    if check:
-        _check_finite(E=E, O=O, ICE=ICE, Fold=Fold)
-    B = E.shape[0]
-    cid, _rv, valid = score_ops.lambda_chunks(E, scored)
-    keep_q, _qtab, hist, thr2 = score_ops.chunk_bh_keep_batched(
-        O, cid, valid, sig, B, n_chunks=s_rows, o_cap=o_cap,
-        slack=_BH_SLACK)
-    hist_b = hist.reshape(B, s_rows, o_cap + 1)
-    keep = scored & keep_q & ~sh.gap_drop
-    sus_bundle = ()
-    gb = _gather_flat_b
-    gu = _gather_flat_shared
-    if exact_mode:
-        sus = score_ops.lambda_suspects(E, scored, margin)
-        keep = keep & ~sus
-        cnt_s, d_s, x_s = score_ops.compact_mask_batched(sus)
-        cid_s = torch.where(gb(valid, d_s, x_s), gb(cid, d_s, x_s), 0)
-        O_s = torch.clamp(torch.floor(gu(O, d_s, x_s)), 0, o_cap) \
-            .to(torch.int32)
-        sus_bundle = (cnt_s, d_s, x_s, cid_s, O_s, gu(sh.gap_drop, d_s, x_s),
-                      thr2)
-    cnt, d_idx, x_idx = score_ops.compact_mask_batched(keep)
-    if check:
-        _check_in_band(cnt, d_idx, x_idx, O.shape[0], sh.L)
-    cid_g = torch.where(gb(valid, d_idx, x_idx), gb(cid, d_idx, x_idx), 0)
-    return (cnt, d_idx, x_idx, gu(O, d_idx, x_idx), gu(ICE, d_idx, x_idx),
-            gb(Fold, d_idx, x_idx), cid_g, hist_b, prod, sus_bundle)
+    obs = _observe_batched(sh, BSV, BEV, wis_t, check=check)
+    O, cid, valid = obs[1], obs[6], obs[7]
+    B, S, C = cid.shape[0], s_rows, o_cap + 1
+    oc, cid0 = score_ops.chunk_pack(O, cid, valid, S, C)
+    hist = score_ops.chunk_hist(oc, cid0, S, C)             # [B*S, C]
+    _qtab, thr2 = score_ops.chunk_thresholds(hist, B, S, sig, _BH_SLACK,
+                                             O.dtype)
+    bundle, sus = _keep_batched(sh, obs, thr2, sig, o_cap, exact_mode,
+                                margin, check)
+    sus = sus + (thr2.to(torch.int32),) if sus else ()
+    return bundle + (hist.reshape(B, S, C), obs[5], sus)
 
 
 def _score_device_bhfdr_compact(sh, bSV, bEV, sig, wi, check=False):
@@ -479,11 +518,256 @@ def _hiccups_scored(bands: ChromBands, cfg: HiccupsConfig, plan, p_list,
     return [(res[i], res[n + i]) for i in range(n)]
 
 
+class TileSheets(NamedTuple):
+    """The sheets of one chromosome as the mesh's column tiles: one
+    :class:`Sheets` a tile, on the tile's device (None for other
+    processes' tiles), each ``T`` columns wide."""
+    tiles: list
+    T: int
+    mesh: object
+    L: int
+
+
+def _mesh_sheets(bands, mesh, d_lo, d_hi, gap_s, ir_backend):
+    """The tiles' sheets.  Bands built whole (``ops/band``) go to the
+    mesh's first device, their sheets are built there whole and cut into
+    tiles (JAX ``_prep_chrom``, ``engine.py:208-240``).  Bands ingested
+    per process (``parallel/multihost.sharded_bands_from_cooler``) hold
+    only this process's tiles: each tile's sheets are built on its device
+    from its raw slab and the whole chromosome's vectors.
+    ``ir_backend='device'`` replaces the host's IR with
+    ``tiles.ir_sharded`` over the raw tiles."""
+    L, n = int(bands.L), mesh.size
+    spans = getattr(bands, 'raw_spans', None)
+    if ir_backend not in ('host', 'device'):
+        raise ValueError(f"ir_backend {ir_backend!r} not in ('host', "
+                         "'device')")
+
+    def ir_on(raw_t):
+        if ir_backend == 'host':
+            return torch.as_tensor(bands.IR, device=mesh.first_device)
+        return tiles.ir_sharded(raw_t, bands.w0, bands.nanw, L,
+                                bands.ww_min, bands.num, mesh)
+
+    cut = [None] * n
+    if spans is None:
+        ops = bands_to_device(bands, mesh.first_device)
+        if ir_backend == 'device':
+            ops['IR'] = ir_on(tiles.shard_band(ops['raw'], mesh))
+        IR = ops['IR']
+        T = tiles.tile_width(ops['raw'].shape[1], n)
+        whole = score_ops.build_sheets(
+            ops['raw'], ops['w0'], ops['bias'], IR, ops['gap'],
+            bands.ww_min, L, d_lo, d_hi, gap_s)
+        parts = [tiles.shard_band(a, mesh) for a in whole]
+        del whole
+        for i in mesh.local_tiles:
+            raw, cband, eband, Bprod, gap_drop, cand = (p[i] for p in parts)
+            cut[i] = Sheets(raw, cband, eband, IR.to(mesh.devices[i]), Bprod,
+                            gap_drop, cand, L)
+    else:
+        T = bands.raw_shape[1] // n
+        want = {(i * T, (i + 1) * T) for i in mesh.local_tiles}
+        if set(spans) != want or T * n != bands.raw_shape[1]:
+            raise ValueError(f'the bands hold column spans {sorted(spans)}; '
+                             f'this process\'s tiles of the mesh are '
+                             f'{sorted(want)}')
+        raw_t = [None] * n
+        for i in mesh.local_tiles:
+            raw_t[i] = torch.as_tensor(spans[(i * T, (i + 1) * T)],
+                                       device=mesh.devices[i])
+        IR = ir_on(raw_t)
+        for i in mesh.local_tiles:
+            dev = mesh.devices[i]
+            vec = {k: torch.as_tensor(np.ascontiguousarray(getattr(bands, k)),
+                                      device=dev)
+                   for k in ('w0', 'bias', 'gap')}
+            IR_i = IR.to(dev)
+            raw, cband, eband, Bprod, gap_drop, cand = score_ops.build_sheets(
+                raw_t[i], vec['w0'], vec['bias'], IR_i, vec['gap'],
+                bands.ww_min, L, d_lo, d_hi, gap_s, c0=i * T)
+            cut[i] = Sheets(raw, cband, eband, IR_i, Bprod, gap_drop, cand, L)
+    return TileSheets(cut, T, mesh, L)
+
+
+def _mesh_front(bands, mesh, plan, p_list, thr, d_lo, d_hi, gap_s, route,
+                replay, ir_backend):
+    """:func:`_scan_front` on the mesh's tiles: the tiles' sheets, pass A
+    on every tile (counts summed), the freeze gate replayed on the host,
+    pass B on every tile.  Returns (TileSheets, per tile {p: [KS, KE, YS,
+    YE]}, FreezeDecision)."""
+    ts = _mesh_sheets(bands, mesh, d_lo, d_hi, gap_s, ir_backend)
+    pass_a, pass_b = _scan_calls(route.scan)
+
+    def field(k):
+        return [sh and sh[k] for sh in ts.tiles]
+
+    raw, cand = field(0), field(6)
+    counts = tiles.scan_pass_a_sharded(raw, cand, plan, p_list, thr, mesh,
+                                       pass_a)
+    decision = replay(counts.cpu().numpy())
+    allowed = torch.tensor(decision.allowed, dtype=torch.bool)
+    outs = tiles.scan_pass_b_sharded(raw, field(1), field(2), cand, allowed,
+                                     plan, p_list, thr, mesh, pass_b)
+    return ts, outs, decision
+
+
+def _gathered(ts, outs_t, route):
+    """The whole chromosome's sheets and captures on the mesh's first
+    device, gathered from the tiles, for the single-device scorers of the
+    routes that need the whole chromosome at once (segmented BH's sort,
+    the dense scorer's host BH, checkify's checks, which run here)."""
+    mesh = ts.mesh
+
+    def g(parts):
+        return tiles.gather_tiles(parts, mesh)
+
+    first = ts.tiles[mesh.local_tiles[0]]
+    sh = Sheets(*(g([t and t[k] for t in ts.tiles]) for k in range(3)),
+                first.IR,
+                *(g([t and t[k] for t in ts.tiles]) for k in range(4, 7)),
+                ts.L)
+    outs = {p: [g([o and o[p][t] for o in outs_t]) for t in range(4)]
+            for p in outs_t[mesh.local_tiles[0]]}
+    if route.check:
+        _check_finite(raw=sh.raw, cband=sh.cband, eband=sh.eband,
+                      Bprod=sh.Bprod)
+        _check_finite(**{f'pass B {n} (p={p})': v for p, o in outs.items()
+                         for n, v in zip(('KS', 'KE', 'YS', 'YE'), o)})
+    return sh, outs
+
+
+def _hiccups_tiles(ts, outs_t, bgs, sig, o_cap, ctx, margin):
+    """The batched pyHICCUPS scorer on the tiles: each tile's first stage
+    (:func:`_observe_batched`), one histogram launch a tile with the
+    histograms summed (``tiles.chunk_hist_sharded``), the keep thresholds
+    of the summed histogram, each tile's second stage
+    (:func:`_keep_batched`), and the tiles' compactions and suspects
+    merged in row-major order.  Unlike JAX's mesh route, which sets no
+    lambda-chunk edge suspect aside (``engine.py:757,1051``), the tiles
+    keep exact mode: the float64 completion corrects the suspects as on
+    one device, so the mesh table is the single-device table.  Returns one
+    host dict per background of ``bgs`` (None where the suspect audit
+    fails)."""
+    mesh = ts.mesh
+    S, C = score_ops.chunk_rows(o_cap, sig), o_cap + 1
+    B = len(bgs)
+    exact_mode = ctx is not None
+    obs = [None] * mesh.size
+    for i in mesh.local_tiles:
+        BSV = torch.stack([outs_t[i][p][t] for p, _, _, t in bgs])
+        BEV = torch.stack([outs_t[i][p][t + 1] for p, _, _, t in bgs])
+        wis = torch.tensor([w for _, w, _, _ in bgs], dtype=torch.int32,
+                           device=mesh.devices[i])
+        obs[i] = _observe_batched(ts.tiles[i], BSV, BEV, wis, c0=i * ts.T)
+    hist = tiles.chunk_hist_sharded(
+        [o and o[1] for o in obs], [o and o[6] for o in obs],
+        [o and o[7] for o in obs], S, C, mesh)
+    _qtab, thr2 = score_ops.chunk_thresholds(
+        hist, B, S, sig, _BH_SLACK, obs[mesh.local_tiles[0]][1].dtype)
+    parts, parts_s, prods = [], [], [None] * mesh.size
+    for i in mesh.local_tiles:
+        bundle, sus = _keep_batched(ts.tiles[i], obs[i],
+                                    thr2.to(mesh.devices[i]), sig, o_cap,
+                                    exact_mode, margin)
+        prods[i] = obs[i][5]
+        obs[i] = None
+        for got, out in ((bundle, parts), (sus, parts_s)):
+            if got:
+                h = _to_host(got)
+                out.append((i * ts.T, [tuple(a[b][:h[0][b]] for a in h[1:])
+                                       for b in range(B)]))
+    merged = tiles.merge_rowmajor(parts, mesh)
+    merged_s = tiles.merge_rowmajor(parts_s, mesh) if exact_mode else None
+    hist_b = _to_host(hist).reshape(B, S, C)
+    thr_h = _to_host(thr2.to(torch.int32))
+    prod = tiles.TiledSheet(prods, mesh)
+    res = []
+    for b, (p, _, kind, _) in enumerate(bgs):
+        sus = None
+        if exact_mode:
+            sus = (len(merged_s[b][0]),) + merged_s[b] + (thr_h[b],)
+        res.append(_compact_to_host(
+            (len(merged[b][0]),) + merged[b] + (hist_b[b],), (prod, b), sig,
+            exact=ctx and (ctx, p, kind), sus=sus))
+    return res
+
+
+def _bhfdr_tiles(ts, outs_t, pw, wi, sig, exact):
+    """The pyBHFDR scorer on the tiles: each tile's E, O and float32 p,
+    the global-BH fixed point with each step's count summed over the
+    tiles (``tiles.psum``), each tile's compaction, merged in row-major
+    order; then float64 completion (``_bhfdr_to_host``)."""
+    mesh = ts.mesh
+    obs, pvals, scoreds = {}, [], []
+    for i in mesh.local_tiles:
+        sh = ts.tiles[i]
+        E, O, ICE, Fold, scored, prod = score_ops.expected_observed(
+            sh.raw, sh.cband, sh.IR, sh.Bprod, outs_t[i][pw][0],
+            outs_t[i][pw][1], wi, sh.cand, sh.L, c0=i * ts.T)
+        pval = torch.where(scored, score_ops.poisson_sf(O, E), 1.0)
+        obs[i] = (O, ICE, Fold, pval, E, sh.gap_drop, prod)
+        pvals.append(pval)
+        scoreds.append(scored)
+    keep, m, _ = score_ops.global_bh_keep(
+        pvals, scoreds, sig, count_sum=lambda c: tiles.psum(c, mesh))
+    parts, prods = [], [None] * mesh.size
+    for k, i in enumerate(mesh.local_tiles):
+        *sheets, prods[i] = obs.pop(i)
+        _cnt, d, x = score_ops.compact_mask(keep[k])
+        h = _to_host((d, x) + tuple(_gather_flat_shared(a, d, x)
+                                    for a in sheets))
+        parts.append((i * ts.T, [h]))
+    d, x, O, ICE, Fold, p, E, gap = tiles.merge_rowmajor(parts, mesh)[0]
+    return _bhfdr_to_host((len(d), d, x, O, ICE, Fold, p, E, _to_host(m),
+                           gap), tiles.TiledSheet(prods, mesh), sig,
+                          exact=exact)
+
+
+def _mesh_hiccups_scored(bands, cfg, plan, p_list, pairs, total, route,
+                         mesh, ir_backend):
+    """:func:`_hiccups_scored` on the mesh's tiles: the batched route on
+    the tiles (:func:`_hiccups_tiles`; a background whose suspect audit
+    fails goes to the dense scorer), every other route on the gathered
+    chromosome (:func:`_gathered`, then :func:`_score_one`)."""
+    ww = tuple(cfg.ww)
+    ts, outs_t, decision = _mesh_front(
+        bands, mesh, plan, p_list, cfg.min_local_reads, min(ww),
+        cfg.maxapart // bands.res, min(ww), route,
+        lambda c: poolplan.emulate_freeze_hiccups(plan, c, total, ww),
+        ir_backend)
+    ctx = _exact_ctx(bands, plan, decision.allowed, cfg.min_local_reads)
+    n = len(pairs)
+    bgs = [(int(p), int(w), k, t) for k, t in (('K', 0), ('Y', 2))
+           for p, w in pairs]
+    res = [None] * (2 * n)
+    if route.batched:
+        res = _hiccups_tiles(ts, outs_t, bgs, cfg.siglevel, route.o_cap, ctx,
+                             _chunk_margin(plan))
+    sh = None
+    for b, (p, w, kind, t) in enumerate(bgs):
+        if res[b] is not None:
+            continue
+        if sh is None:
+            sh, outs = _gathered(ts, outs_t, route)
+        if route.batched:
+            res[b] = _score_dense(sh, outs[p][t], outs[p][t + 1],
+                                  cfg.siglevel, w, chunked=True)
+        else:
+            res[b] = _score_one(sh, outs[p][t], outs[p][t + 1], w,
+                                cfg.siglevel, route, chunked=True,
+                                exact=ctx and (ctx, p, kind))
+    return [(res[i], res[n + i]) for i in range(n)]
+
+
 def _gather_prod(prod, pixels):
     """Postcheck values at (x, y) ``pixels`` of a ``prod`` handle: a
     (stacked [B, num_p, Lp], b) pair from a batched scorer or a plain
     [num_p, Lp] sheet (``engine.py:799-805``), as numpy."""
     stacked, i = prod if isinstance(prod, tuple) else (prod[None], 0)
+    if isinstance(stacked, tiles.TiledSheet):
+        return stacked.gather(i, [y - x for x, y in pixels],
+                              [x for x, _ in pixels])
     di = torch.tensor([y - x for x, y in pixels], dtype=torch.int64,
                       device=stacked.device)
     xi = torch.tensor([x for x, _ in pixels], dtype=torch.int64,
@@ -491,9 +775,9 @@ def _gather_prod(prod, pixels):
     return stacked[i, di, xi].cpu().numpy()
 
 
-def hiccups_chrom(bands: ChromBands, cfg: HiccupsConfig, device,
+def hiccups_chrom(bands: ChromBands, cfg: HiccupsConfig, device=None,
                   mesh=None, scan_backend='auto', bh_backend='auto',
-                  check=False):
+                  check=False, ir_backend='host'):
     """Two-background multi-parameter caller (reference callers.py:44-362)
     on one ``device``.  Returns {(x_bp, y_bp): (cen_x, cen_y, radius, O,
     FoldK, pK, qK, FoldY, pY, qY)} in bp, the table of
@@ -511,9 +795,20 @@ def hiccups_chrom(bands: ChromBands, cfg: HiccupsConfig, device,
 
     On a CUDA device the bands must be float32 (the kernels take float32
     sheets and raise otherwise); on the CPU float64 bands compute what the
-    JAX engine computes under x64."""
-    _refuse_mesh(mesh)
-    device = resolve_device(device)
+    JAX engine computes under x64.
+
+    ``mesh`` (a ``parallel.mesh.TileMesh``; anything else is a TypeError)
+    runs the chromosome on the mesh's column tiles, on ``mesh.devices``
+    (``device`` is then not read), through the host gate as JAX's mesh
+    route does.  JAX's mesh route sets no lambda-chunk edge suspect aside
+    (``engine.py:757,1051``), which on the card moved a bench-shape q
+    7.6e-6 off the float64 oracle; the port's tiles keep exact mode, so
+    the mesh table is the single-device table.  ``ir_backend='device'``
+    derives IR from the tiles (``parallel.tiles.ir_sharded``) instead of
+    the host's; it has no effect without a mesh, as in JAX."""
+    check_mesh(mesh)
+    if mesh is None:
+        device = resolve_device(device)
     res = bands.res
     pw, ww = tuple(cfg.pw), tuple(cfg.ww)
     plan = tuple(poolplan.hiccups_pool_plan(pw, ww, cfg.maxww))
@@ -523,9 +818,14 @@ def hiccups_chrom(bands: ChromBands, cfg: HiccupsConfig, device,
     max_count = getattr(bands, 'max_count', None)
     if max_count is None:
         max_count = float(bands.raw.max())
-    route = resolve_route(scan_backend, bh_backend, check, total, max_count)
-    results = _hiccups_scored(bands, cfg, plan, p_list, pairs, total, route,
-                              device)
+    route = resolve_route(scan_backend, bh_backend, check, total, max_count,
+                          mesh)
+    if mesh is None:
+        results = _hiccups_scored(bands, cfg, plan, p_list, pairs, total,
+                                  route, device)
+    else:
+        results = _mesh_hiccups_scored(bands, cfg, plan, p_list, pairs,
+                                       total, route, mesh, ir_backend)
 
     pixel_table = {}
     for pair_idx, (pi, wi) in enumerate(pairs):
@@ -580,29 +880,51 @@ def hiccups_chrom(bands: ChromBands, cfg: HiccupsConfig, device,
     return final_table
 
 
-def bhfdr_chrom(bands: ChromBands, cfg: BHFDRConfig, device, mesh=None,
-                scan_backend='auto', bh_backend='auto', check=False):
+def bhfdr_chrom(bands: ChromBands, cfg: BHFDRConfig, device=None,
+                mesh=None, scan_backend='auto', bh_backend='auto',
+                check=False, ir_backend='host'):
     """Donut-only caller with one global BH (reference callers.py:364-590)
     on one ``device``.  Returns {(x_bp, y_bp): (cen_x, cen_y, radius, O,
     Fold, p, q)} in bp, the table of
-    ``hicpeaks_tpu.core.engine.bhfdr_chrom``; the routes, the checks and
-    the dtype rules are those of :func:`hiccups_chrom`."""
-    _refuse_mesh(mesh)
-    device = resolve_device(device)
+    ``hicpeaks_tpu.core.engine.bhfdr_chrom``; the routes, the checks, the
+    dtype rules, ``mesh`` and ``ir_backend`` are those of
+    :func:`hiccups_chrom`.  On a mesh the global BH's fixed point sums
+    each step's count over the tiles, and the float64 completion stays
+    exact, as JAX calls its scorer without the mesh
+    (``engine.py:1422-1425``): the mesh table equals the single-device
+    one."""
+    check_mesh(mesh)
+    if mesh is None:
+        device = resolve_device(device)
     res = bands.res
     plan = tuple(poolplan.bhfdr_pool_plan(cfg.pw, cfg.ww, cfg.maxww))
     total = bands.candidate_total(cfg.ww, cfg.maxapart // res)
-    route = resolve_route(scan_backend, bh_backend, check, total)
+    route = resolve_route(scan_backend, bh_backend, check, total, mesh=mesh)
     t_left = poolplan.left_threshold(total)
-    sh, outs, decision = _scan_front(
-        bands_to_device(bands, device), bands, plan, (cfg.pw,), _BHFDR_THR,
-        cfg.ww, cfg.maxapart // res, cfg.ww, route,
-        lambda c: poolplan.emulate_freeze_bhfdr(plan, c, total),
-        lambda c: poolplan.device_allowed_bhfdr(c, total, t_left, plan))
+
+    def replay(c):
+        return poolplan.emulate_freeze_bhfdr(plan, c, total)
+
+    if mesh is None:
+        sh, outs, decision = _scan_front(
+            bands_to_device(bands, device), bands, plan, (cfg.pw,),
+            _BHFDR_THR, cfg.ww, cfg.maxapart // res, cfg.ww, route, replay,
+            lambda c: poolplan.device_allowed_bhfdr(c, total, t_left, plan))
+    else:
+        ts, outs_t, decision = _mesh_front(
+            bands, mesh, plan, (cfg.pw,), _BHFDR_THR, cfg.ww,
+            cfg.maxapart // res, cfg.ww, route, replay, ir_backend)
     ctx = _exact_ctx(bands, plan, decision.allowed, _BHFDR_THR)
-    KS, KE, _, _ = outs[cfg.pw]
-    r = _score_one(sh, KS, KE, int(cfg.ww), cfg.siglevel, route,
-                   chunked=False, exact=ctx and (ctx, cfg.pw, 'K'))
+    exact = ctx and (ctx, cfg.pw, 'K')
+    if mesh is not None and route.batched:
+        r = _bhfdr_tiles(ts, outs_t, cfg.pw, int(cfg.ww), cfg.siglevel,
+                         exact)
+    else:
+        if mesh is not None:
+            sh, outs = _gathered(ts, outs_t, route)
+        KS, KE, _, _ = outs[cfg.pw]
+        r = _score_one(sh, KS, KE, int(cfg.ww), cfg.siglevel, route,
+                       chunked=False, exact=exact)
 
     # insertion order is output order: Donuts follows the row-major
     # compaction, and the clustering and the bedpe writer iterate it

@@ -240,6 +240,24 @@ class CoolerLite:
         mask = (b2 >= lo) & (b2 < hi)
         return (b1[mask] - lo), (b2[mask] - lo), ct[mask]
 
+    def pixels_for_bin1_range(self, chrom, c0, c1):
+        """(bin1, bin2, count) with chromosome-local bin1 in [c0, c1)
+        (intra only): the ``indexes/bin1_offset`` table makes the span one
+        contiguous row slice, so a process of a tile-sharded run reads
+        only its own columns."""
+        lo, hi = self.bin_range(chrom)
+        r0 = lo + max(0, min(c0, hi - lo))
+        r1 = lo + max(0, min(c1, hi - lo))
+        with h5lite.File(self.path) as h5:
+            grp = h5[self.group]
+            b1o = grp['indexes/bin1_offset']
+            plo, phi = int(b1o[r0]), int(b1o[r1])
+            b1 = grp['pixels/bin1_id'][plo:phi]
+            b2 = grp['pixels/bin2_id'][plo:phi]
+            ct = grp['pixels/count'][plo:phi]
+        mask = (b2 >= lo) & (b2 < hi)
+        return (b1[mask] - lo), (b2[mask] - lo), ct[mask]
+
     def fetch_sparse(self, chrom, balance=False, weight_name='weight'):
         """Symmetric scipy CSR of one chromosome; ``balance`` applies
         ``w[x]*w[y]`` with NaN weights propagating to NaN values, matching

@@ -1,8 +1,9 @@
 """Float64 host recomputation of per-pixel statistics for compacted pixels.
 
-The port's copy of ``hicpeaks_tpu/ops/hostexact.py``.  The port runs one
-process, so the cross-process integer sum is the identity (multi-GPU runs
-are ROADMAP.md Queue 1 item 13).
+The port's copy of ``hicpeaks_tpu/ops/hostexact.py``.  The cross-process
+integer sum of bands ingested per process is the bands' ``span_sum``
+(``parallel/multihost.sharded_bands_from_cooler``), an all-gather on
+torch.distributed's gloo group where JAX's is ``process_allgather``.
 
 The device pipeline is float32 (TPU-native); the reference is float64
 end-to-end.  After round 3's integer-histogram completion, the one
@@ -46,10 +47,12 @@ from __future__ import annotations
 import numpy as np
 
 
-def _psum_host_int(x):
-    """Exact sum of an integer host array across processes: the port runs
-    one process, so the sum is ``x`` itself."""
-    return x
+def _psum_host_int(x, bands):
+    """Exact sum of an integer host array across the processes that
+    ingested ``bands``' column spans: their ``span_sum``, or ``x`` itself
+    when one process holds every span."""
+    reduce = getattr(bands, 'span_sum', None)
+    return x if reduce is None else reduce(x)
 
 
 class ExactCtx:
@@ -131,7 +134,7 @@ class ExactCtx:
 
         dp = d_idx + (b - a)[None, :]               # cell band row
         tp = x_idx + a[None, :]                     # cell band col
-        num_p, Lp = bands.raw.shape
+        num_p, Lp = getattr(bands, 'raw_shape', None) or bands.raw.shape
         inb = (dp >= 0) & (dp < num_p) & (tp >= 0) & (tp < Lp)
         dpc = np.clip(dp, 0, num_p - 1)
         tpc = np.clip(tp, 0, Lp - 1)
@@ -172,7 +175,7 @@ class ExactCtx:
         for (c0, c1), slab in spans.items():
             m = inb & (tp >= c0) & (tp < c1)
             cells[m] = slab[dp[m], tp[m] - c0].astype(np.int64)
-        return _psum_host_int(cells).astype(np.float64)
+        return _psum_host_int(cells, bands).astype(np.float64)
 
     def raw_at(self, d_idx, x_idx):
         """Float64 raw count of the pixels themselves (the O column)."""
@@ -184,7 +187,7 @@ class ExactCtx:
         for (c0, c1), slab in spans.items():
             m = (x_idx >= c0) & (x_idx < c1)
             out[m] = slab[d_idx[m], x_idx[m] - c0].astype(np.int64)
-        return _psum_host_int(out).astype(np.float64)
+        return _psum_host_int(out, bands).astype(np.float64)
 
     def ir64(self):
         ir = getattr(self.bands, 'IR64', None)

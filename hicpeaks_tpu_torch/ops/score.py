@@ -25,12 +25,16 @@ import torch
 from .cuda_hist import chunk_hist
 
 
-def shear_bcast(vec, num_p):
-    """out[d, x] = vec[x + d], zero beyond the end: a strided re-read of
-    the zero-padded vector (row d starts one element later per row)."""
-    Lp = vec.shape[0]
-    wpad = torch.cat([vec, vec.new_zeros(num_p)])
-    return wpad.as_strided((num_p, Lp), (1, 1))
+def shear_bcast(vec, num_p, c0=0, width=None):
+    """out[d, x] = vec[c0 + x + d] for x < ``width`` (default: the rest of
+    the vector), zero beyond the end: a strided re-read of the zero-padded
+    vector (row d starts one element later per row).  ``c0`` is a column
+    tile's offset in the chromosome."""
+    seg = vec[c0:]
+    width = seg.shape[0] if width is None else width
+    pad = num_p + max(0, width - seg.shape[0])
+    wpad = torch.cat([seg, seg.new_zeros(pad)])
+    return wpad.as_strided((num_p, width), (1, 1))
 
 
 def _shift1(A, k):
@@ -45,10 +49,11 @@ def _shift1(A, k):
     return torch.cat([A.new_zeros(-k), A[:k]])
 
 
-def gap_reject_device(gap, num_p, L, s):
+def gap_reject_device(gap, num_p, L, s, c0=0, width=None):
     """drop[d, x] = any gap bin inside the reference's exclusive-upper
     windows around x or y = x + d (callers.py:291-312); the twin of
-    ``hicpeaks_tpu.ops.score.gap_reject_device``."""
+    ``hicpeaks_tpu.ops.score.gap_reject_device``.  ``gap`` is the whole
+    chromosome's vector; ``c0`` and ``width`` select a column tile."""
     Lp = gap.shape[0]
     pos = torch.arange(Lp, device=gap.device)
     g = (gap & (pos < L)).to(torch.int32)
@@ -60,37 +65,55 @@ def gap_reject_device(gap, num_p, L, s):
     # lower branch pos > s: G[pos-s] = A[pos-s-1]; else G[0] = 0
     Gl = torch.where(pos > s, _shift1(A, -(s + 1)), 0)
     cnt = torch.where(pos < L, Gu - Gl, 0)
-    return (cnt[None, :] + shear_bcast(cnt, num_p)) > 0
+    width = Lp - c0 if width is None else width
+    return (_cols(cnt, c0, width)[None, :]
+            + shear_bcast(cnt, num_p, c0, width)) > 0
 
 
-def build_sheets(raw, w0, bias, IR, gap, ww_min, L, d_lo, d_hi, gap_s):
+def _cols(vec, c0, width):
+    """vec[c0:c0 + width], zero past the vector's end."""
+    seg = vec[c0:c0 + width]
+    if seg.shape[0] < width:
+        seg = torch.cat([seg, seg.new_zeros(width - seg.shape[0])])
+    return seg
+
+
+def build_sheets(raw, w0, bias, IR, gap, ww_min, L, d_lo, d_hi, gap_s,
+                 c0=0):
     """Every dense sheet the engine needs, from one raw slab and O(L)
     vectors (``_build_sheets_jit``): returns (raw f32, cband, eband, Bprod,
     gap_drop, cand).  The multiply order ``raw * w0[x] * w0[x+d]`` is
-    JAX's, so float32 sheets are bit-identical to it."""
-    num_p, Lp = raw.shape
+    JAX's, so float32 sheets are bit-identical to it.
+
+    ``raw`` may be a column tile starting at chromosome column ``c0``; the
+    vectors ``w0``, ``bias`` and ``gap`` are always the whole chromosome's
+    (a tile's sheets read them past its right edge)."""
+    num_p, T = raw.shape
     dev = raw.device
     drow = torch.arange(num_p, device=dev)[:, None]
-    col = torch.arange(Lp, device=dev)[None, :]
+    col = c0 + torch.arange(T, device=dev)[None, :]
 
     raw = raw.to(torch.float32)
-    cband = raw * w0[None, :] * shear_bcast(w0, num_p)
+    cband = raw * _cols(w0, c0, T)[None, :] * shear_bcast(w0, num_p, c0, T)
     cband = torch.where(drow < ww_min, 0.0, cband)
     eband = torch.where(col < (L - drow), IR[:, None], 0.0)
-    Bprod = bias[None, :] * shear_bcast(bias, num_p)
-    gap_drop = gap_reject_device(gap, num_p, L, gap_s)
+    Bprod = _cols(bias, c0, T)[None, :] * shear_bcast(bias, num_p, c0, T)
+    gap_drop = gap_reject_device(gap, num_p, L, gap_s, c0, T)
     cand = (raw != 0) & (drow >= d_lo) & (drow <= d_hi)
     return raw, cband, eband, Bprod, gap_drop, cand
 
 
-def expected_observed(raw, cband, IR, Bprod, bSV, bEV, wi, cand_mask, L):
+def expected_observed(raw, cband, IR, Bprod, bSV, bEV, wi, cand_mask, L,
+                      c0=0):
     """E, O, ICE, Fold, the scored mask and the raw EM*ratio product (the
     hiccups Y-background postcheck reads it, callers.py:329-331).
-    ``bSV``/``bEV``/``wi`` may carry a leading batch axis."""
+    ``bSV``/``bEV``/``wi`` may carry a leading batch axis.  ``c0``: the
+    chromosome column of the sheets' first column (a column tile's
+    offset)."""
     num_p, Lp = raw.shape
     dev = raw.device
     drow = torch.arange(num_p, device=dev)[:, None]
-    col = torch.arange(Lp, device=dev)[None, :]
+    col = c0 + torch.arange(Lp, device=dev)[None, :]
     EM = torch.where(col < (L - drow), IR[:, None], 0.0)
 
     mask = (bEV != 0) & (drow >= wi) & cand_mask
@@ -181,40 +204,44 @@ def qtab_from_hist(hist2, dtype, period=None):
     return torch.cummin(qraw, dim=1).values
 
 
-def chunk_bh_keep_batched(O, cid, valid, sig, B, n_chunks=128, o_cap=32768,
-                          slack=0.0):
-    """Per-background histogram BH keep mask over ``B`` backgrounds
-    ([B, num_p, Lp] ``cid``/``valid``; ``O`` is the shared [num_p, Lp]
-    observed sheet).
+def chunk_pack(O, cid, valid, S, C):
+    """The histogram's inputs from one sheet: int32 counts ``clamp(floor(O),
+    0, C-1)`` [n] and int32 chunk ids [B, n], ``clamp(cid, 1, S-1)`` where
+    valid and 0 (the trash row) elsewhere; ``O`` is [num_p, Lp], ``cid``
+    and ``valid`` [B, num_p, Lp]."""
+    B = cid.shape[0]
+    Oc = torch.clamp(torch.floor(O), 0, C - 1)
+    cid0 = torch.where(valid, torch.clamp(cid, 1, S - 1), 0)
+    return Oc.to(torch.int32).reshape(-1), cid0.reshape(B, -1)
 
-    All B histograms come from ONE histogram launch with background b's
-    rows at ``b*S`` (row ``b*S`` its invalid trash row).  ``q <= sig`` is
-    ``count >= thr[chunk]`` because q is nonincreasing in the count within
-    a chunk; the per-pixel threshold is the gather ``thr2[b, clamp(cid, 1,
-    S-1)]``, the same integer JAX forms as a telescoping broadcast-sum.
-    ``slack`` inflates ``sig`` so the mask is a superset of the float64
-    rejection set.
 
-    Returns (keep [B, ...], qtab [B*S, C], hist [B*S, C] int32,
-    thr [B, S] int32)."""
-    S, C = n_chunks, o_cap + 1
+def chunk_thresholds(hist, B, S, sig, slack, dtype):
+    """The q table [B*S, C] of the summed histogram and each (background,
+    chunk)'s keep threshold: the least count whose q is <= ``sig * (1 +
+    slack)``, int32 [B, S] (q is nonincreasing in the count within a
+    chunk, so ``q <= sig`` is ``count >= thr[chunk]``)."""
+    qtab = qtab_from_hist(hist, dtype, period=S)
+    sig_t = torch.tensor(sig, dtype=dtype, device=hist.device)
+    thr = (qtab > sig_t * (1.0 + slack)).to(dtype).sum(dim=1)
+    return qtab, thr.reshape(B, S)
+
+
+def chunk_keep(O, cid, valid, thr2, sig, C):
+    """Histogram BH's keep mask [B, ...] from the thresholds of
+    :func:`chunk_thresholds`: the per-pixel threshold is the gather
+    ``thr2[b, clamp(cid, 1, S-1)]``, the same integer JAX forms as a
+    telescoping broadcast-sum."""
+    B, S = thr2.shape
     Oc = torch.clamp(torch.floor(O), 0, C - 1)
     cidc = torch.clamp(cid, 1, S - 1)
-    cid0 = torch.where(valid, cidc, 0)
-    hist = chunk_hist(Oc.to(torch.int32).reshape(-1),
-                      cid0.reshape(B, -1), S, C)            # [B*S, C]
-    qtab = qtab_from_hist(hist, O.dtype, period=S)
-    sig_t = torch.tensor(sig, dtype=O.dtype, device=O.device)
-    thr = (qtab > sig_t * (1.0 + slack)).to(O.dtype).sum(dim=1)
-    thr2 = thr.reshape(B, S)
     th = torch.gather(thr2, 1, cidc.reshape(B, -1).to(torch.int64)) \
         .reshape(cid.shape)
     keep = valid & (Oc >= th)
-    keep = keep | (~valid & (sig_t >= 1.0))
-    return keep, qtab, hist, thr.to(torch.int32).reshape(B, S)
+    sig_t = torch.tensor(sig, dtype=O.dtype, device=O.device)
+    return keep | (~valid & (sig_t >= 1.0))
 
 
-def global_bh_keep(pval, valid, sig):
+def global_bh_keep(pval, valid, sig, count_sum=None):
     """Sort-free keep SUPERSET for global (pyBHFDR) BH: the fixed point of
     ``t <- sig * #{p <= t} / m``, started at ``t = sig`` and inflated by
     1e-4 relative at every step, so the mask holds every pixel of the exact
@@ -228,16 +255,27 @@ def global_bh_keep(pval, valid, sig):
     bit-equal to JAX's on the same p-values.  Each loop test is a host
     sync; the loop ends when the count stops changing.
 
+    ``pval`` and ``valid`` may be lists of column tiles; ``count_sum``
+    then reduces a list of per-tile integer counts to the chromosome's
+    (``parallel.tiles.psum``), once per step, and ``keep`` is a list.
+
     Returns (keep, m, iterations) with m the valid count in ``pval.dtype``
     and ``iterations`` the number of fixed-point steps."""
-    dt, dev = pval.dtype, pval.device
+    tiled = isinstance(pval, (list, tuple))
+    pvals, valids = (pval, valid) if tiled else ([pval], [valid])
+    count_sum = count_sum or (lambda parts: parts[0])
+    dt = pvals[0].dtype
+    dev = count_sum([v.sum() for v in valids]).device
     infl = torch.tensor(1.0001, dtype=dt, device=dev)
     sigf = torch.tensor(sig, dtype=torch.float32).to(dt).to(dev)
-    m = valid.sum().to(dt)
+    m = count_sum([v.sum() for v in valids]).to(dt)
     msafe = torch.clamp(m, min=1.0)
 
+    def below(t):
+        return [v & (p <= t.to(p.device)) for p, v in zip(pvals, valids)]
+
     def count(t):
-        return (valid & (pval <= t)).sum().to(dt)
+        return count_sum([k.sum() for k in below(t)]).to(dt)
 
     k = count(sigf * infl)
     iterations = 0
@@ -247,8 +285,8 @@ def global_bh_keep(pval, valid, sig):
         if bool(k_next == k):
             break
         k = k_next
-    keep = valid & (pval <= sigf * k / msafe * infl)
-    return keep, m, iterations
+    keep = below(sigf * k / msafe * infl)
+    return (keep if tiled else keep[0]), m, iterations
 
 
 def segmented_bh(pvals, seg, valid):

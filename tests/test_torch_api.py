@@ -131,10 +131,20 @@ def test_jax_positional_order_is_accepted(uri):
 
 
 @pytest.mark.parametrize('call', ['call_hiccups', 'call_bhfdr'])
-def test_mesh_raises_naming_the_roadmap_item(uri, call):
-    with pytest.raises(NotImplementedError,
-                       match='ROADMAP.md, Queue 1 item 13'):
+def test_mesh_tables_equal_one_device(uri, call):
+    """A mesh that is not a TileMesh raises TypeError, and a 3-tile CPU
+    mesh returns the single-device tables, in the same order."""
+    from hicpeaks_tpu_torch.parallel.mesh import make_tile_mesh
+    with pytest.raises(TypeError, match='TileMesh'):
         getattr(tapi, call)(uri, mesh=object(), device='cpu')
+    cfg = CFG if call == 'call_hiccups' else BCFG
+    want = getattr(tapi, call)(uri, cfg, device='cpu')
+    got = getattr(tapi, call)(uri, cfg, mesh=make_tile_mesh(
+        devices=['cpu'] * 3), device='cpu')
+    assert sum(len(t) for t in want.values()) > 0
+    assert got == want
+    assert [list(t) for t in got.values()] == \
+        [list(t) for t in want.values()]
 
 
 def test_bucket_arguments_are_logged_without_effect(uri, caplog):

@@ -193,14 +193,21 @@ def test_bhfdr_chrom_matches_jax_and_oracle(coolers, name, dtype):
     assert list(got) == list(want)
 
 
-def test_bhfdr_unported_fallbacks_raise(coolers):
-    """A device mesh still raises and names its roadmap item; checkify and
-    a candidate total past the int32 freeze gate (the host-gate route) now
-    return the JAX engine's table."""
+def test_bhfdr_mesh_checkify_and_gate_overflow_served(coolers):
+    """A mesh that is not a TileMesh raises TypeError and a 4-tile CPU
+    mesh returns the single-device table; checkify and a candidate total
+    past the int32 freeze gate (the host-gate route) return the JAX
+    engine's table."""
+    from hicpeaks_tpu_torch.parallel.mesh import make_tile_mesh
     clr, _ = coolers['parity']
     b = _bands(clr, np.float32)
-    with pytest.raises(NotImplementedError, match='item 13'):
+    with pytest.raises(TypeError, match='TileMesh'):
         tengine.bhfdr_chrom(b, CFG, device='cpu', mesh=object())
+    single = tengine.bhfdr_chrom(b, CFG, device='cpu')
+    meshed = tengine.bhfdr_chrom(b, CFG, mesh=make_tile_mesh(
+        devices=['cpu'] * 4))
+    assert len(single) > 0
+    assert meshed == single and list(meshed) == list(single)
     want = jengine.bhfdr_chrom(_bands(clr, np.float32), CFG, check=True)
     got = tengine.bhfdr_chrom(b, CFG, device='cpu', check=True)
     assert len(want) > 0

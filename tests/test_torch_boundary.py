@@ -1,6 +1,7 @@
-"""The port's boundary: hicpeaks_tpu_torch (engines, API, the peak-calling
-CLIs from a cooler, toCooler, apa-analysis, combine-resolutions and
-peak-plot) imports nothing of JAX, of the JAX package or
+"""The port's boundary: hicpeaks_tpu_torch (engines, on one device and on
+a tile mesh, the multi-process modules, API, the peak-calling CLIs from a
+cooler, toCooler, apa-analysis, combine-resolutions and peak-plot) imports
+nothing of JAX, of the JAX package or
 of h5py (coolers go through the port's io/h5lite), and a CUDA request on a
 machine without CUDA raises instead of running on the CPU.
 
@@ -54,6 +55,19 @@ _PROBE = textwrap.dedent('''
     table = hiccups_chrom(bands, HiccupsConfig(maxapart=maxapart),
                           device='cpu')
     btable = bhfdr_chrom(bands, BHFDRConfig(maxapart=maxapart), device='cpu')
+
+    # the multi-device layer: a 3-tile CPU mesh, and the process-group
+    # modules (no group here: maybe_initialize_distributed returns False)
+    import hicpeaks_tpu_torch.parallel.launch as launch
+    import hicpeaks_tpu_torch.parallel.multihost as multihost
+    from hicpeaks_tpu_torch.parallel.mesh import make_tile_mesh
+    mesh = make_tile_mesh(devices=['cpu'] * 3)
+    same_mesh = (hiccups_chrom(bands, HiccupsConfig(maxapart=maxapart),
+                               mesh=mesh) == table
+                 and bhfdr_chrom(bands, BHFDRConfig(maxapart=maxapart),
+                                 mesh=mesh) == btable
+                 and not launch.maybe_initialize_distributed()
+                 and multihost.gather_tables({'1': btable}) == {'1': btable})
     write_bhfdr_bedpe(sys.stderr, '1', res, btable)
 
     # toCooler from TXT, then the pyBHFDR CLI on a synthetic cooler
@@ -108,7 +122,7 @@ _PROBE = textwrap.dedent('''
     jaxpkg = sorted(m for m in sys.modules
                     if m.split('.')[0] in ('jax', 'hicpeaks_tpu', 'h5py'))
     print(len(table), len(btable), rc, n_lines, rc_toc, n_weights,
-          rc_apa, n_windows, rc_comb, n_combined, rc_plot, n_png,
+          rc_apa, n_windows, rc_comb, n_combined, rc_plot, n_png, same_mesh,
           ','.join(jaxpkg) or '-')
 ''')
 
@@ -120,11 +134,13 @@ def test_port_never_imports_jax_or_h5py(tmp_path):
                           timeout=300)
     assert proc.returncode == 0, proc.stderr
     (n_peaks, n_bhfdr, rc, n_lines, rc_toc, n_weights, rc_apa, n_windows,
-     rc_comb, n_combined, rc_plot, n_png, jaxpkg) = proc.stdout.split()
+     rc_comb, n_combined, rc_plot, n_png, same_mesh,
+     jaxpkg) = proc.stdout.split()
     assert int(n_peaks) > 0 and int(n_bhfdr) > 0
     assert (rc, rc_toc, rc_apa, rc_comb, rc_plot) == ('0',) * 5
     assert int(n_lines) > 0 and int(n_weights) > 400
     assert int(n_windows) > 0 and int(n_combined) > 0 and n_png == 'True'
+    assert same_mesh == 'True'
     assert jaxpkg == '-', f'modules of jax, hicpeaks_tpu or h5py: {jaxpkg}'
 
 

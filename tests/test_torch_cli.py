@@ -1,8 +1,9 @@
 """The port's command-line tools (hicpeaks_tpu_torch/cli/peakcall.py)
 against the JAX package's, on one synthetic cooler with weights and the
 argv of test_cli_e2e.py: the same flags, byte-identical bedpe files (with
-every engine flag value the port serves), and a non-zero exit naming the
-ROADMAP item for the one it refuses, ``--mesh-devices``."""
+every engine flag value the port serves, ``--mesh-devices`` on CPU tiles
+among them), and a non-zero exit where a CUDA card is asked for and
+absent."""
 import argparse
 import logging
 import os
@@ -155,12 +156,19 @@ def test_served_flags_match_jax_bedpe(uri, jax_bedpe, jax_bedpe_host_bh,
 
 
 @pytest.mark.parametrize('tool', list(ARGV))
-@pytest.mark.parametrize('flags,item', [
-    (['--mesh-devices', '2'], 'item 13')])
-def test_refused_flags_name_their_item(uri, tool, flags, item, tmp_path):
-    with pytest.raises(NotImplementedError, match=item):
-        _port(tool, uri, tmp_path, *flags)
-    assert not (tmp_path / 'port.bedpe').exists()
+@pytest.mark.parametrize('flags', [['--mesh-devices', '2'],
+                                   ['--mesh-devices', '7']])
+def test_mesh_devices_cli_matches_jax(uri, jax_bedpe, tool, flags,
+                                      tmp_path):
+    """``--mesh-devices N`` with ``--device cpu`` runs each chromosome on
+    N CPU tiles (7 does not divide the band's width) and the bedpe is the
+    JAX CLI's, as JAX's own mesh writes its single-device table
+    (test_sharded.py)."""
+    rc, bedpe = _port(tool, uri, tmp_path, *flags)
+    assert rc == 0
+    assert bedpe.read_bytes() == jax_bedpe[tool]
+    assert f'TileMesh([{", ".join(["cpu"] * int(flags[1]))}])' in \
+        (tmp_path / 'p.log').read_text()
 
 
 def _run_module(args):
@@ -170,12 +178,25 @@ def _run_module(args):
         env=env, cwd=REPO, capture_output=True, text=True, timeout=300)
 
 
-def test_module_exits_nonzero_on_a_refused_flag(uri, tmp_path):
-    proc = _run_module(['pyBHFDR', '-O', str(tmp_path / 'x.bedpe'), '-p',
-                        uri, '--device', 'cpu', '--mesh-devices', '2'])
+def test_module_mesh_devices_runs_and_cards_without_cuda_fail(uri, jax_bedpe, tmp_path):
+    """The module with ``--mesh-devices 2 --device cpu`` exits 0 and
+    writes the JAX CLI's bedpe; a mesh of cards on a machine without CUDA
+    is refused with a non-zero exit, never run on the CPU."""
+    out = tmp_path / 'x.bedpe'
+    proc = _run_module(['pyBHFDR', '-O', str(out), '-p', uri, *ARGV[
+        'pyBHFDR'], '--device', 'cpu', '--mesh-devices', '2', '--logFile',
+        str(tmp_path / 'x.log')])
+    assert proc.returncode == 0, proc.stderr
+    assert out.read_bytes() == jax_bedpe['pyBHFDR']
+    if torch.cuda.is_available():
+        return
+    out.unlink()
+    proc = _run_module(['pyBHFDR', '-O', str(out), '-p', uri,
+                        '--mesh-devices', '2', '--logFile',
+                        str(tmp_path / 'y.log')])
     assert proc.returncode != 0
-    assert 'NotImplementedError' in proc.stderr
-    assert 'item 13' in proc.stderr
+    assert 'RuntimeError' in proc.stderr and 'CUDA' in proc.stderr
+    assert not out.exists()
 
 
 def test_cuda_device_without_cuda_exits_nonzero(uri, tmp_path):

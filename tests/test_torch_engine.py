@@ -113,18 +113,24 @@ def test_hiccups_chrom_deep_data_matches_jax(deep_clr, pw, ww, maxww,
     _assert_tables_match(got, want, rtol=1e-12)
 
 
-def test_unported_fallbacks_raise(clr):
-    """A device mesh still raises and names its roadmap item (multi-GPU);
-    checkify and a max count above the histogram cap now return the JAX
-    engine's table."""
+def test_mesh_checkify_and_cap_overflow_served(clr):
+    """A mesh that is not a TileMesh raises TypeError and a 4-tile CPU
+    mesh returns the single-device table; checkify and a max count above
+    the histogram cap return the JAX engine's table."""
+    from hicpeaks_tpu_torch.parallel.mesh import make_tile_mesh
     cfg = HiccupsConfig(pw=(1,), ww=(3,), maxww=8, maxapart=2000000)
 
     def bands():
         return bands_from_cooler(clr, '21', cfg.maxapart, cfg.maxww, 3,
                                  dtype=np.float64)
 
-    with pytest.raises(NotImplementedError, match='item 13'):
+    with pytest.raises(TypeError, match='TileMesh'):
         tengine.hiccups_chrom(bands(), cfg, device='cpu', mesh=object())
+    single = tengine.hiccups_chrom(bands(), cfg, device='cpu')
+    assert len(single) > 0
+    _assert_tables_match(
+        tengine.hiccups_chrom(bands(), cfg, mesh=make_tile_mesh(
+            devices=['cpu'] * 4)), single, rtol=1e-12)
     want = jengine.hiccups_chrom(bands(), cfg, check=True)
     assert len(want) > 0
     _assert_tables_match(

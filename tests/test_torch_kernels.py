@@ -263,6 +263,38 @@ def test_bhfdr_chrom_on_card_matches_cpu(device, pw, ww):
                                    atol=1e-300)
 
 
+@pytest.mark.parametrize('caller', ['hiccups', 'bhfdr'])
+def test_mesh_of_tiles_on_card_matches_one_device(device, caller):
+    """Three tiles on the one card (a device list that repeats the card)
+    launch each scan kernel once a tile and give the one-device table,
+    in its order."""
+    from hicpeaks_tpu_torch.core import engine
+    from hicpeaks_tpu_torch.core.config import BHFDRConfig, HiccupsConfig
+    from hicpeaks_tpu_torch.io.synth import synthesize_chrom
+    from hicpeaks_tpu_torch.ops.band import build_bands
+    from hicpeaks_tpu_torch.parallel.mesh import make_tile_mesh
+    res, L, maxapart, maxww = 10000, 1500, 600000, 10
+    num = maxapart // res + maxww + 1
+    b1, b2, ct, _, bias = synthesize_chrom(n_bins=L, res=res, seed=3,
+                                           depth=40.0, n_loops=60,
+                                           decay=0.75,
+                                           max_loop_span_bins=num - 12)
+    w = np.full(L, np.nan)
+    w[bias > 0] = 1.0 / bias[bias > 0]
+    if caller == 'hiccups':
+        cfg, call = HiccupsConfig(maxww=maxww, maxapart=maxapart), \
+            engine.hiccups_chrom
+    else:
+        cfg, call = BHFDRConfig(maxww=maxww, maxapart=maxapart), \
+            engine.bhfdr_chrom
+    bands = build_bands(b1, b2, ct, w, L, num, 5, res)
+    want = call(bands, cfg, device=device)
+    launches = cuda_scan.scan_pass_b.launches
+    got = call(bands, cfg, mesh=make_tile_mesh(devices=[device] * 3))
+    assert cuda_scan.scan_pass_b.launches == launches + 3
+    assert len(want) > 0 and got == want and list(got) == list(want)
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(device):
     raw, cband, eband, cand = _bands(16, 64, 60, 0, device)
     plan = tuple(poolplan.hiccups_pool_plan([2], [5], 7))

@@ -140,10 +140,13 @@ def test_compact_mask_batched_matches_jax():
 @pytest.mark.parametrize('sig,o_cap', [(0.05, 1024), (0.31, 256),
                                        (0.05, 4096)])
 def test_chunk_bh_keep_batched_matches_jax(sig, o_cap):
-    """B=2 with the same cid/valid given to both: keep, and thr and
-    histogram rows >= 1, equal (row 0 is the trash row; JAX's padding
-    lands in its cell (0, 0)).  At o_cap 4096 (S = 48, the cap of deeper
-    data) a fifth of the counts spread log-uniformly over the table."""
+    """JAX's ``chunk_bh_keep_batched`` against the steps the port's
+    batched scorer takes (``engine._compact_batched``: ``chunk_pack``, one
+    histogram launch, ``chunk_thresholds``, ``chunk_keep``).  B=2 with the
+    same cid/valid given to both: keep, and thr and histogram rows >= 1,
+    equal (row 0 is the trash row; JAX's padding lands in its cell (0,
+    0)).  At o_cap 4096 (S = 48, the cap of deeper data) a fifth of the
+    counts spread log-uniformly over the table."""
     rng = np.random.default_rng(23)
     num_p, Lp, B = 30, 300, 2
     O = rng.poisson(6.0, (num_p, Lp)).astype(np.float32)
@@ -164,9 +167,13 @@ def test_chunk_bh_keep_batched_matches_jax(sig, o_cap):
     jk, _, jh, jt, _ = jscore.chunk_bh_keep_batched(
         jnp.asarray(Ob), jnp.asarray(cid), jnp.asarray(valid),
         jnp.float32(sig), B, n_chunks=S, o_cap=o_cap, slack=0.01)
-    tk, _, th, tt = tscore.chunk_bh_keep_batched(
-        torch.from_numpy(O), torch.from_numpy(cid), torch.from_numpy(valid),
-        sig, B, n_chunks=S, o_cap=o_cap, slack=0.01)
+    To, tcid, tvalid = (torch.from_numpy(O), torch.from_numpy(cid),
+                        torch.from_numpy(valid))
+    C = o_cap + 1
+    oc, cid0 = tscore.chunk_pack(To, tcid, tvalid, S, C)
+    th = tscore.chunk_hist(oc, cid0, S, C)
+    _, tt = tscore.chunk_thresholds(th, B, S, sig, 0.01, To.dtype)
+    tk = tscore.chunk_keep(To, tcid, tvalid, tt, sig, C)
     jh = np.asarray(jh).reshape(B, S, -1)
     th = th.numpy().reshape(B, S, -1)
     np.testing.assert_array_equal(th[:, 1:], jh[:, 1:])
