@@ -109,14 +109,27 @@ It exits non-zero on any failure, and without a CUDA card.  Phases:
    bit-equal to ``bands_from_cooler``'s, both callers' tables held to
    (a)'s bars against one device's on the cooler's bands; one ``multi``
    JSON line.  The tiles take turns on one card: the walls are the cost
-   of tiling, not a speed-up.
+   of tiling, not a speed-up;
+12. the trace (``profile_dir``), on 9b's chr1 cooler before it is
+   removed: ``api.call_hiccups`` (10 Mb) and ``api.call_bhfdr`` (2 Mb) on
+   chromosome 1, once to warm up and once with ``profile_dir``; each
+   trace holds CUDA kernels, and ``scan_pass_a_kernel``,
+   ``scan_pass_b_kernel`` and ``chunk_hist_kernel`` as many times as
+   their launch counters give, which are the fused route's 1 / 1 / 1
+   (pyHICCUPS) and 1 / 1 / 0 (pyBHFDR); the traced table == the
+   untraced one; printed: the traced window, the device's busy time (the
+   union of its kernels, copies and memsets) and idle share, the five
+   kernels with the most device time, each hand-written kernel's traced
+   time beside its CUDA-event time from phases 4 and 6, and the card's
+   nvidia-smi line; one ``trace`` JSON line.
 
     python3 chip_smoke.py --crossing-only
 
 runs phases 1 and 8f alone, in a process that holds nothing else, and
 prints no result line; ``--pipeline-only`` does the same for phases 9 and
-10, and ``--multi-only`` for phases 1 and 11 (with phases 9b and 9c first,
-for their coolers).
+10, ``--multi-only`` for phases 1 and 11 (with phases 9b and 9c first,
+for their coolers), and ``--trace-only`` for phases 1 and 12 (on a chr1
+cooler written and balanced as 9b's).
 
 The line before the last is one JSON object with a record per kernel (its
 main keys from phase 4, the others prefixed by phase or histogram shape,
@@ -1079,6 +1092,23 @@ def ingest_check(device, tmp):
     return out
 
 
+def chr1_cooler(tmp, L=24900):
+    """Phase 4's chr1 (10 kb, L = 24,900, seed 42, 2000 loops) written as
+    an unbalanced cooler under ``tmp``; (URI, its pixels, write seconds)."""
+    from hicpeaks_tpu_torch.io.coolerlite import binnify, create_cooler_file
+    from hicpeaks_tpu_torch.io.synth import synthesize_chrom
+    num = 10_000_000 // RES + MAXWW + 1
+    b1, b2, ct, _, _ = synthesize_chrom(
+        n_bins=L, res=RES, seed=42, depth=40.0, n_loops=2000, decay=0.75,
+        max_loop_span_bins=num - MAXWW - 54)
+    uri = f'{os.path.join(tmp, "chr1.cool")}::{RES}'
+    t0 = time.perf_counter()
+    create_cooler_file(uri, binnify({'1': L * RES}, RES),
+                       [{'bin1_id': b1, 'bin2_id': b2, 'count': ct}],
+                       metadata={'onlyIntra': 'True'})
+    return uri, (b1, b2, ct), time.perf_counter() - t0
+
+
 def cli_check(device, tmp, counters, L=24900, keep=None):
     """Phase 9b: phase 4's chr1 (10 kb, L = 24,900, seed 42, 2000 loops)
     written as a cooler, balanced on the card, then both CLIs from it on
@@ -1089,24 +1119,13 @@ def cli_check(device, tmp, counters, L=24900, keep=None):
     import torch
     from hicpeaks_tpu_torch.core import engine
     from hicpeaks_tpu_torch.core.config import BHFDRConfig, HiccupsConfig
-    from hicpeaks_tpu_torch.io.coolerlite import (CoolerLite, binnify,
-                                                  create_cooler_file)
+    from hicpeaks_tpu_torch.io.coolerlite import CoolerLite
     from hicpeaks_tpu_torch.io.peakfile import (write_bhfdr_bedpe,
                                                 write_hiccups_bedpe)
-    from hicpeaks_tpu_torch.io.synth import synthesize_chrom
     from hicpeaks_tpu_torch.ops import ice
     from hicpeaks_tpu_torch.ops.band import bands_from_cooler
-    num = 10_000_000 // RES + MAXWW + 1
-    b1, b2, ct, _, _ = synthesize_chrom(
-        n_bins=L, res=RES, seed=42, depth=40.0, n_loops=2000, decay=0.75,
-        max_loop_span_bins=num - MAXWW - 54)
-    cool = os.path.join(tmp, 'chr1.cool')
-    uri = f'{cool}::{RES}'
-    t0 = time.perf_counter()
-    create_cooler_file(uri, binnify({'1': L * RES}, RES),
-                       [{'bin1_id': b1, 'bin2_id': b2, 'count': ct}],
-                       metadata={'onlyIntra': 'True'})
-    t_write = time.perf_counter() - t0
+    uri, (b1, b2, ct), t_write = chr1_cooler(tmp, L)
+    cool = uri.split('::')[0]
     if keep is not None:
         keep['chr1_uri'] = uri
     t0 = time.perf_counter()
@@ -1983,13 +2002,144 @@ def mesh_processes(device, tmp, files, counters):
     return out
 
 
-def user_pipeline(device, counters, multi=True):
+# phase 12: the hand-written kernels as a trace names them (kineto may print
+# the demangled signature, so a name is matched as a substring), and the
+# fused route's launches of each per chromosome call (PERF.md section 6)
+TRACED_KERNELS = {'scan_pass_a': 'scan_pass_a_kernel',
+                  'scan_pass_b': 'scan_pass_b_kernel',
+                  'chunk_hist': 'chunk_hist_kernel'}
+FUSED_LAUNCHES = {'pyHICCUPS': dict(scan_pass_a=1, scan_pass_b=1,
+                                    chunk_hist=1),
+                  'pyBHFDR': dict(scan_pass_a=1, scan_pass_b=1,
+                                  chunk_hist=0)}
+DEVICE_CATS = ('kernel', 'gpu_memcpy', 'gpu_memset')
+
+
+def union_ms(spans):
+    """Milliseconds covered by the union of (start, end) microsecond
+    spans."""
+    total, end = 0.0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total / 1e3
+
+
+def trace_summary(path):
+    """What a Chrome trace of ``api._run``'s capture holds: the traced
+    window (every complete event, host and device), the device's busy
+    time (the union of its kernels, copies and memsets) and idle share,
+    the kernels by name with their counts and total time, and each
+    hand-written kernel's events."""
+    with open(path) as f:
+        events = json.load(f)['traceEvents']
+    done = [e for e in events if e.get('ph') == 'X' and 'dur' in e]
+    if not done:
+        raise AssertionError(f'[12] {path} holds no complete event')
+    spans = [(float(e['ts']), float(e['ts']) + float(e['dur']))
+             for e in done]
+    window_ms = (max(b for _, b in spans) - min(a for a, _ in spans)) / 1e3
+    device = [(float(e['ts']), float(e['ts']) + float(e['dur']))
+              for e in done if e.get('cat') in DEVICE_CATS]
+    kernels = [e for e in done if e.get('cat') == 'kernel']
+    by_name = {}
+    for e in kernels:
+        n, t = by_name.get(e['name'], (0, 0.0))
+        by_name[e['name']] = (n + 1, t + float(e['dur']) / 1e3)
+    busy_ms = union_ms(device)
+    first = min(done, key=lambda e: float(e['ts']))
+    ours = {k: [float(e['dur']) / 1e3 for e in kernels if sub in e['name']]
+            for k, sub in TRACED_KERNELS.items()}
+    return dict(events=len(events), cpu_ops=sum(
+                    e.get('cat') == 'cpu_op' for e in done),
+                kernel_events=len(kernels), window_ms=window_ms,
+                busy_ms=busy_ms, idle_share=1.0 - busy_ms / window_ms,
+                device_span_ms=(max(b for _, b in device) -
+                                min(a for a, _ in device)) / 1e3
+                if device else 0.0,
+                first_event=first['name'], first_thread=first.get('tid'),
+                lead_ms=(min(a for a, _ in device) - float(first['ts'])) / 1e3
+                if device else 0.0,
+                top=sorted(by_name.items(), key=lambda kv: -kv[1][1])[:5],
+                ours=ours, file_mib=os.path.getsize(path) / 2 ** 20)
+
+
+def trace_check(device, tmp, counters, uri, smi, kernel_ms=None):
+    """Phase 12: ``api.call_hiccups`` and ``api.call_bhfdr`` on chr1 of the
+    cooler at ``uri`` (phase 9b's), each called once to warm up and once
+    with ``profile_dir``: one trace file, CUDA kernels in it, each
+    hand-written kernel as many times as its launch counter gives and as
+    the fused route launches it, and the table == the untraced one.
+    ``kernel_ms`` ({tool: {kernel: CUDA-event ms}}, phases 4 and 6) is
+    printed beside the traced durations."""
+    from hicpeaks_tpu_torch import api
+    from hicpeaks_tpu_torch.core.config import BHFDRConfig, HiccupsConfig
+    t_phase = time.perf_counter()
+    out = {}
+    for tool, call, cfg in (('pyHICCUPS', api.call_hiccups, HiccupsConfig()),
+                            ('pyBHFDR', api.call_bhfdr, BHFDRConfig())):
+        t0 = time.perf_counter()
+        want = call(uri, cfg, chroms=('1',), device=device)
+        t_plain = time.perf_counter() - t0
+        tdir = os.path.join(tmp, f'trace.{tool}', 'new')
+        table, wall, launches = run_counted(
+            counters, lambda: call(uri, cfg, chroms=('1',), device=device,
+                                   profile_dir=tdir))
+        files = os.listdir(tdir)
+        if len(files) != 1 or not files[0].endswith('.pt.trace.json'):
+            raise AssertionError(f'[12] {tool}: trace files {files}')
+        r = trace_summary(os.path.join(tdir, files[0]))
+        traced = {k: len(v) for k, v in r['ours'].items()}
+        if r['kernel_events'] < 1:
+            raise AssertionError(f'[12] {tool}: no CUDA kernel in the trace')
+        if not traced == launches == FUSED_LAUNCHES[tool]:
+            raise AssertionError(
+                f'[12] {tool}: kernels in the trace {traced}, launch '
+                f'counters {launches}, fused route {FUSED_LAUNCHES[tool]}')
+        if table != want:
+            raise AssertionError(f'[12] {tool}: the traced table differs '
+                                 'from the untraced one')
+        log(f'[12] {tool} chr1 traced ({files[0]}, {r["file_mib"]:.1f} MiB, '
+            f'{r["events"]} events, {r["cpu_ops"]} host ops): call '
+            f'{wall:.3f} s (untraced, warming up: {t_plain:.3f} s); window '
+            f'{r["window_ms"]:.3f} ms, device busy '
+            f'{r["busy_ms"]:.3f} ms (kernels, copies, memsets), idle '
+            f'{r["idle_share"]:.1%}; first to last device event '
+            f'{r["device_span_ms"]:.3f} ms, the first {r["lead_ms"]:.3f} ms '
+            f'after the window opens ({r["first_event"][:40]!r} on thread '
+            f'{r["first_thread"]}); {r["kernel_events"]} kernels; '
+            f'{sum(len(t) for t in table.values())} peaks == untraced; '
+            f'{smi}')
+        log('[12]   top kernels by device time: ' + '; '.join(
+            f'{n[:60]} x{c} {t:.3f} ms' for n, (c, t) in r['top']))
+        for k, durs in r['ours'].items():
+            if not durs:
+                continue
+            ev = (kernel_ms or {}).get(tool, {}).get(k)
+            log(f'[12]   {k}: traced x{len(durs)}, {sum(durs):.4f} ms; '
+                'CUDA events ' + (f'{ev:.4f} ms' if ev is not None
+                                  else 'not timed in this run'))
+        out[tool] = dict(r, wall_s=wall, plain_wall_s=t_plain,
+                         launches=launches, traced=traced,
+                         peaks=sum(len(t) for t in table.values()),
+                         top=[[n, c, t] for n, (c, t) in r['top']])
+    out['phase_s'] = time.perf_counter() - t_phase
+    log(f'[12] phase 12 in {out["phase_s"]:.2f} s')
+    return out
+
+
+def user_pipeline(device, counters, multi=True, trace=None):
     """Phase 9: the user pipeline on the card, every cooler read and
     written through the port's h5lite (the host has no h5py): (a) TXT ->
     toCooler, (b) both CLIs from a cooler, (c) a genome; then phase 10,
-    the figures' path on (c)'s files, and with ``multi`` phase 11c and
-    11d on (b)'s and (c)'s.  Its files live under build/smoke/ and are
-    removed afterwards."""
+    the figures' path on (c)'s files, with ``multi`` phase 11c and 11d on
+    (b)'s and (c)'s, and with ``trace`` (:func:`trace_check`'s ``smi``
+    and ``kernel_ms``) phase 12 on (b)'s.  Its files live under
+    build/smoke/ and are removed afterwards."""
     import shutil
     tmp = os.path.join(REPO, 'build', 'smoke')
     shutil.rmtree(tmp, ignore_errors=True)
@@ -2005,6 +2155,10 @@ def user_pipeline(device, counters, multi=True):
         log(json.dumps({'figures': out['figures']}))
         if multi:
             out['multi'] = mesh_processes(device, tmp, files, counters)
+        if trace is not None:
+            out['trace'] = trace_check(device, tmp, counters,
+                                       files['chr1_uri'], **trace)
+            log(json.dumps({'trace': out['trace']}))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return out
@@ -2048,6 +2202,9 @@ def main():
     ap.add_argument('--multi-only', action='store_true',
                     help='run phases 1 and 11 alone (11c and 11d on the '
                     'coolers of phases 9b and 9c, made first)')
+    ap.add_argument('--trace-only', action='store_true',
+                    help='run phases 1 and 12 alone (12 on a chr1 cooler '
+                    'written as phase 9b writes it)')
     ap.add_argument('--mesh-worker', nargs=4,
                     metavar=('MODE', 'URI', 'OUT', 'DEVICE'),
                     help=argparse.SUPPRESS)
@@ -2086,6 +2243,24 @@ def main():
             crossing(device, counters)
         if args.pipeline_only:
             user_pipeline(device, counters, multi=False)
+        log(smi)
+        return 0
+    if args.trace_only:
+        import shutil
+        from hicpeaks_tpu_torch.io.coolerlite import CoolerLite
+        from hicpeaks_tpu_torch.ops import ice
+        tmp = os.path.join(REPO, 'build', 'smoke')
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+        try:
+            uri, _, t_write = chr1_cooler(tmp)
+            ice.balance(CoolerLite(uri), device=device)
+            log(f'[12] chr1 cooler written in {t_write:.2f} s and balanced '
+                'on the card')
+            log(json.dumps({'trace': trace_check(device, tmp, counters, uri,
+                                                 smi)}))
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
         log(smi)
         return 0
     if args.multi_only:
@@ -2230,7 +2405,10 @@ def main():
 
     # --- 9, 10: the user pipeline from TXT to bedpe, coolers through
     # h5lite, and the figures; then 11c and 11d on its coolers ---
-    pipeline = user_pipeline(device, counters)
+    kernel_ms = {'pyHICCUPS': {k: r['ms'] for k, r in chr1.items()},
+                 'pyBHFDR': {k: r['ms'] for k, r in chr1_b.items()}}
+    pipeline = user_pipeline(device, counters,
+                             trace=dict(smi=smi, kernel_ms=kernel_ms))
     mesh_out.update(pipeline['multi'])
     log(json.dumps({'multi': mesh_out}))
 
@@ -2254,6 +2432,10 @@ def main():
                    pipeline_bhfdr_launches=pipeline['clis']['pyBHFDR'][
                        'launches'][name],
                    genome_launches=pipeline['genome']['launches'][name],
+                   trace_hiccups_launches=pipeline['trace']['pyHICCUPS'][
+                       'traced'][name],
+                   trace_bhfdr_launches=pipeline['trace']['pyBHFDR'][
+                       'traced'][name],
                    **{f'multires_{res}_launches': r['launches'][name]
                       for res, r in pipeline['figures']['multires'][
                           'res'].items()},

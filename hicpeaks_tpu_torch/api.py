@@ -5,8 +5,17 @@ Port of ``hicpeaks_tpu/api.py``'s ``_run``, ``call_hiccups`` and
 durable checkpoints (JSON peak tables named ``<kind>.<chrom>.json``; a
 rerun resumes from them) and a prefetch thread that builds the next
 chromosome's host bands while the device works on the current one.  The
-consumer does the host-to-device copy (``engine.bands_to_device``).  The
-profiler capture is not ported.
+consumer does the host-to-device copy (``engine.bands_to_device``).
+
+``profile_dir`` captures the chromosome loop with ``torch.profiler``, in
+JAX's window (``jax.profiler.start_trace`` after the producer thread
+starts, ``stop_trace`` in the loop's ``finally``, so a failed run still
+leaves its trace): host ops, and the card's kernels and copies when the
+device or a tile of ``mesh`` is CUDA.  The directory is made if missing,
+and each process writes one Chrome trace into it
+(:func:`trace_file_name`; open it in Perfetto or ``chrome://tracing``).
+A capture on the card that holds no CUDA kernel raises RuntimeError once
+the file is written: the trace does not hide the device.
 
 ``mesh`` (``parallel.mesh.TileMesh``) runs each chromosome on column
 tiles.  In a process group (``parallel.launch.maybe_initialize_distributed``)
@@ -21,10 +30,9 @@ every process returns the whole genome's table, in the cooler's
 chromosome order.
 
 ``call_hiccups``/``call_bhfdr`` take the JAX API's parameters in its
-order, then the keyword ``device``; ``profile_dir``, ``shape_bucket``,
-``row_bucket`` and ``max_count_floor`` are logged as having no effect
-(they shared XLA executables or drove the JAX profiler; eager PyTorch
-compiles nothing).
+order, then the keyword ``device``; ``shape_bucket``, ``row_bucket`` and
+``max_count_floor`` are logged as having no effect (they shared XLA
+executables; eager PyTorch compiles nothing).
 """
 from __future__ import annotations
 
@@ -32,10 +40,13 @@ import json
 import logging
 import os
 import queue
+import re
+import socket
 import threading
 import time
 
 import numpy as np
+from torch.profiler import ProfilerActivity, profile
 
 from .cli.common import chrom_selected
 from .core import engine
@@ -86,12 +97,40 @@ def _selected_chroms(clr, chroms):
     return out
 
 
-_NO_EFFECT = {'profile_dir': None, 'shape_bucket': 4096, 'row_bucket': 8,
-              'max_count_floor': None}
+_NO_EFFECT = {'shape_bucket': 4096, 'row_bucket': 8, 'max_count_floor': None}
+
+# a kernel event of a Chrome trace, as torch's and kineto's writers print it
+_KERNEL_EVENT = re.compile(r'"cat":\s*"kernel"')
+
+
+def trace_file_name(kind, rank, host=None, stamp_ms=None):
+    """The Chrome trace one process writes for ``profile_dir``:
+    ``<kind>.<host>.rank<rank>.<unix ms>.pt.trace.json`` (rank 0 outside a
+    process group), so processes sharing the directory never overwrite
+    each other's."""
+    host = socket.gethostname() if host is None else host
+    stamp_ms = int(time.time() * 1000) if stamp_ms is None else stamp_ms
+    return f'{kind}.{host}.rank{rank}.{stamp_ms}.pt.trace.json'
+
+
+def trace_activities(device, mesh):
+    """The host's ops, and the card's activity when ``device`` or a tile
+    of ``mesh`` is CUDA."""
+    devices = (device,) + (mesh.devices if mesh is not None else ())
+    if any(d.type == 'cuda' for d in devices):
+        return [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    return [ProfilerActivity.CPU]
+
+
+def count_kernel_events(path):
+    """The CUDA kernel events of the Chrome trace at ``path``, read a line
+    at a time (a genome's trace can be large)."""
+    with open(path) as f:
+        return sum(len(_KERNEL_EVENT.findall(line)) for line in f)
 
 
 def _run(kind, cooler_uri, cfg, chroms, device, checkpoint_dir, dtype,
-         scan_backend, bh_backend, check, mesh, **no_effect):
+         scan_backend, bh_backend, check, mesh, profile_dir, **no_effect):
     from .io.coolerlite import CoolerLite
 
     check_mesh(mesh)
@@ -164,6 +203,12 @@ def _run(kind, cooler_uri, cfg, chroms, device, checkpoint_dir, dtype,
         producer = threading.Thread(target=_producer,
                                     name=f'{kind}-band-loader', daemon=True)
         producer.start()
+    prof = None
+    if profile_dir:
+        os.makedirs(profile_dir, exist_ok=True)
+        activities = trace_activities(device, mesh)
+        prof = profile(activities=activities)
+        prof.start()
     try:
         for key_i in todo:
             if global_mesh:
@@ -212,6 +257,17 @@ def _run(kind, cooler_uri, cfg, chroms, device, checkpoint_dir, dtype,
                 band_q.get_nowait()
             except queue.Empty:
                 time.sleep(0.05)
+        if prof is not None:
+            prof.stop()
+            trace = os.path.join(profile_dir, trace_file_name(kind, rank))
+            prof.export_chrome_trace(trace)
+            log.info('profile trace written to %s', trace)
+    if (prof is not None and todo and ProfilerActivity.CUDA in activities
+            and count_kernel_events(trace) == 0):
+        raise RuntimeError(
+            f'profile_dir: the trace {trace} holds no CUDA kernel although '
+            'the run used the card: CUPTI was not found, or the card was '
+            'not traced')
     if nproc > 1 and not global_mesh:
         gathered = gather_tables(results)
         results = {key.lstrip('chr'): gathered[key.lstrip('chr')]

@@ -59,7 +59,9 @@ def _worker(uri, out_dir, cli_port):
     assert nproc == 2
     bcfg, hcfg = BHFDRConfig(**BCFG), HiccupsConfig(**HCFG)
     out = {'transport': launch.device_transport()[0]}
-    out['chrom_dp'] = _payload(api.call_bhfdr(uri, bcfg, device='cpu'))
+    out['chrom_dp'] = _payload(api.call_bhfdr(
+        uri, bcfg, device='cpu',
+        profile_dir=os.path.join(out_dir, 'trace.chrom_dp')))
     out['chrom_dp_mesh'] = _payload(api.call_bhfdr(
         uri, bcfg, mesh=multihost.local_tile_mesh(2, 'cpu'), device='cpu'))
 
@@ -104,8 +106,9 @@ def _worker(uri, out_dir, cli_port):
         out['global_engine_1x2'] = _payload({
             'bhfdr.1': engine.bhfdr_chrom(bands, bcfg, mesh=mesh2),
             'hiccups.1': engine.hiccups_chrom(bands, hcfg, mesh=mesh2)})
-        out['global_api'] = _payload(api.call_bhfdr(uri, bcfg, mesh=mesh,
-                                                    device='cpu'))
+        out['global_api'] = _payload(api.call_bhfdr(
+            uri, bcfg, mesh=mesh, device='cpu',
+            profile_dir=os.path.join(out_dir, 'trace.global_api')))
     finally:
         CoolerLite.pixels_for_bin1_range = by_range
         CoolerLite.pixels_for_chrom = whole
@@ -225,6 +228,15 @@ def _assert_matches_jax(payload, want, rtol=1e-12):
                                        atol=1e-300)
 
 
+def _assert_one_trace_a_rank(trace_dir):
+    """Two Chrome traces in ``trace_dir``, one for rank 0, one for rank
+    1."""
+    names = sorted(os.listdir(trace_dir))
+    assert len(names) == 2, names
+    assert all(n.endswith('.pt.trace.json') for n in names)
+    assert [n.split('.')[-5] for n in names] == ['rank0', 'rank1']
+
+
 def test_worker_imports_no_jax():
     """The worker half of this file imports nothing of JAX at module
     level: its top-level imports are the standard library, numpy and
@@ -246,10 +258,13 @@ def test_worker_imports_no_jax():
 def test_two_process_distributed_parity(workers, jax_bhfdr, case):
     """Chromosome data-parallelism, with and without a local 2-tile mesh:
     both processes return the whole genome's table, in cooler order, equal
-    to JAX's single-process table."""
-    out, _ = workers
+    to JAX's single-process table.  Without the mesh the call was traced
+    (``profile_dir``): one trace a process, named by its rank."""
+    out, out_dir = workers
     assert out[0][case] == out[1][case]
     _assert_matches_jax(out[0][case], jax_bhfdr)
+    if case == 'chrom_dp':
+        _assert_one_trace_a_rank(out_dir / 'trace.chrom_dp')
 
 
 def test_two_process_per_host_ingestion(workers, two_chrom_cooler):
@@ -335,11 +350,13 @@ def test_two_process_global_mesh_engine(workers, two_chrom_cooler, case,
 def test_two_process_global_mesh_api(workers, jax_bhfdr):
     """api.call_bhfdr on the global mesh: every process works every
     chromosome and returns the whole table, equal to JAX's
-    single-process table and to chromosome data-parallelism's."""
-    out, _ = workers
+    single-process table and to chromosome data-parallelism's; traced
+    (``profile_dir``), each process writes a trace of its own."""
+    out, out_dir = workers
     assert out[0]['global_api'] == out[1]['global_api'] == \
         out[0]['chrom_dp']
     _assert_matches_jax(out[0]['global_api'], jax_bhfdr)
+    _assert_one_trace_a_rank(out_dir / 'trace.global_api')
 
 
 @pytest.fixture(scope='module')
