@@ -21,7 +21,10 @@ It exits non-zero on any failure, and without a CUDA card.  Phases:
 3. the main path, ``hiccups_chrom`` on the card, with every kernel's
    launch count, and its table against the float64 oracle
    (tests/oracle/reference_impl.py): identical loci and geometry, max
-   relative stat difference < 1e-8;
+   relative stat difference < 1e-8; then JAX's call form,
+   ``hiccups_chrom(bands, cfg)`` with no ``device``, which must launch
+   the same kernels as often and return the same table (the default
+   device is the card);
 4. chr1 scale at the CLI default span (L=24,900 at 10 kb, 10 Mb): the
    main path's kernel launches in its first call and the steady
    per-chromosome wall of the second, and the kernel checks of phase 2
@@ -112,12 +115,13 @@ It exits non-zero on any failure, and without a CUDA card.  Phases:
    of tiling, not a speed-up;
 12. the trace (``profile_dir``), on 9b's chr1 cooler before it is
    removed: ``api.call_hiccups`` (10 Mb) and ``api.call_bhfdr`` (2 Mb) on
-   chromosome 1, once to warm up and once with ``profile_dir``; each
+   chromosome 1, once to warm up in JAX's call form (no ``device``) and
+   once with ``device='cuda'`` and ``profile_dir``; each
    trace holds CUDA kernels, and ``scan_pass_a_kernel``,
    ``scan_pass_b_kernel`` and ``chunk_hist_kernel`` as many times as
    their launch counters give, which are the fused route's 1 / 1 / 1
    (pyHICCUPS) and 1 / 1 / 0 (pyBHFDR); the traced table == the
-   untraced one; printed: the traced window, the device's busy time (the
+   JAX-form one; printed: the traced window, the device's busy time (the
    union of its kernels, copies and memsets) and idle share, the five
    kernels with the most device time, each hand-written kernel's traced
    time beside its CUDA-event time from phases 4 and 6, and the card's
@@ -131,7 +135,10 @@ prints no result line; ``--pipeline-only`` does the same for phases 9 and
 for their coolers), and ``--trace-only`` for phases 1 and 12 (on a chr1
 cooler written and balanced as 9b's).
 
-The line before the last is one JSON object with a record per kernel (its
+Before the result lines, one ``defaults:`` line gives phases 3 and 12's
+JAX-form calls (no ``device``): their peaks, launches and equality with
+the ``device='cuda'`` tables.  The line before the last is one JSON
+object with a record per kernel (its
 main keys from phase 4, the others prefixed by phase or histogram shape,
 phase 11's by ``mesh4.`` and ``global2x2.``);
 the last line is {"ok": true, "device": {...}}.
@@ -1816,7 +1823,8 @@ def mesh_worker(mode, uri, out_path, device):
                 ('hiccups', HiccupsConfig(), engine.hiccups_chrom)):
             t0 = time.perf_counter()
             bands = multihost.sharded_bands_from_cooler(
-                clr, '1', cfg.maxapart, cfg.maxww, cfg.ww_min, mesh)
+                clr, '1', cfg.maxapart, cfg.maxww, cfg.ww_min, mesh,
+                dtype=np.float32)
             t_band = time.perf_counter() - t0
             table, wall, launches = run_counted(
                 counters, lambda: call(bands, cfg, mesh=mesh))
@@ -2082,9 +2090,9 @@ def trace_check(device, tmp, counters, uri, smi, kernel_ms=None):
     out = {}
     for tool, call, cfg in (('pyHICCUPS', api.call_hiccups, HiccupsConfig()),
                             ('pyBHFDR', api.call_bhfdr, BHFDRConfig())):
-        t0 = time.perf_counter()
-        want = call(uri, cfg, chroms=('1',), device=device)
-        t_plain = time.perf_counter() - t0
+        # JAX's call form: no device, which is the card
+        want, t_plain, jax_launches = run_counted(
+            counters, lambda: call(uri, cfg, chroms=('1',)))
         tdir = os.path.join(tmp, f'trace.{tool}', 'new')
         table, wall, launches = run_counted(
             counters, lambda: call(uri, cfg, chroms=('1',), device=device,
@@ -2100,19 +2108,22 @@ def trace_check(device, tmp, counters, uri, smi, kernel_ms=None):
             raise AssertionError(
                 f'[12] {tool}: kernels in the trace {traced}, launch '
                 f'counters {launches}, fused route {FUSED_LAUNCHES[tool]}')
-        if table != want:
-            raise AssertionError(f'[12] {tool}: the traced table differs '
-                                 'from the untraced one')
+        if table != want or jax_launches != launches:
+            raise AssertionError(
+                f'[12] {tool}: the traced table (device={device!r}) '
+                f'differs from JAX\'s call form (no device), or its '
+                f'launches {launches} from {jax_launches}')
         log(f'[12] {tool} chr1 traced ({files[0]}, {r["file_mib"]:.1f} MiB, '
             f'{r["events"]} events, {r["cpu_ops"]} host ops): call '
-            f'{wall:.3f} s (untraced, warming up: {t_plain:.3f} s); window '
-            f'{r["window_ms"]:.3f} ms, device busy '
+            f'{wall:.3f} s (untraced JAX form, warming up: {t_plain:.3f} s); '
+            f'window {r["window_ms"]:.3f} ms, device busy '
             f'{r["busy_ms"]:.3f} ms (kernels, copies, memsets), idle '
             f'{r["idle_share"]:.1%}; first to last device event '
             f'{r["device_span_ms"]:.3f} ms, the first {r["lead_ms"]:.3f} ms '
             f'after the window opens ({r["first_event"][:40]!r} on thread '
             f'{r["first_thread"]}); {r["kernel_events"]} kernels; '
-            f'{sum(len(t) for t in table.values())} peaks == untraced; '
+            f'{sum(len(t) for t in table.values())} peaks == untraced '
+            'JAX form; '
             f'{smi}')
         log('[12]   top kernels by device time: ' + '; '.join(
             f'{n[:60]} x{c} {t:.3f} ms' for n, (c, t) in r['top']))
@@ -2125,6 +2136,7 @@ def trace_check(device, tmp, counters, uri, smi, kernel_ms=None):
                                   else 'not timed in this run'))
         out[tool] = dict(r, wall_s=wall, plain_wall_s=t_plain,
                          launches=launches, traced=traced,
+                         jax_form_launches=jax_launches,
                          peaks=sum(len(t) for t in table.values()),
                          top=[[n, c, t] for n, (c, t) in r['top']])
     out['phase_s'] = time.perf_counter() - t_phase
@@ -2319,6 +2331,19 @@ def main():
     max_rel = compare_to_oracle(table, want)
     log(f'[3] oracle ({time.perf_counter() - t0:.1f} s): {len(want)} peaks; '
         f'loci identical, geometry identical, max rel stat diff {max_rel:.3g}')
+    # JAX's call form: no device, which is the card
+    jax_form, t_jax, jax_launches = run_counted(
+        counters, lambda: engine.hiccups_chrom(bands, cfg))
+    if jax_form != table or jax_launches != bench_launches:
+        raise AssertionError(
+            f'[3] hiccups_chrom(bands, cfg): {len(jax_form)} peaks, '
+            f'launches {jax_launches}; device=\'cuda\': {len(table)} '
+            f'peaks, launches {bench_launches}')
+    defaults = {'engine_bench': dict(peaks=len(jax_form), equal=True,
+                                     launches=jax_launches, wall_s=t_jax)}
+    log(f'[3] JAX\'s call form hiccups_chrom(bands, cfg), no device: '
+        f'{t_jax:.2f} s, {len(jax_form)} peaks == device=\'cuda\', '
+        f'launches {jax_launches}')
 
     # --- 4: chr1 scale at the CLI default span ---
     maxapart = 10_000_000
@@ -2412,6 +2437,12 @@ def main():
     mesh_out.update(pipeline['multi'])
     log(json.dumps({'multi': mesh_out}))
 
+    for tool in ('pyHICCUPS', 'pyBHFDR'):
+        r = pipeline['trace'][tool]
+        defaults[f'api_chr1_{tool}'] = dict(
+            peaks=r['peaks'], equal=True, launches=r['jax_form_launches'],
+            wall_s=r['plain_wall_s'])
+    log('defaults: ' + json.dumps(defaults))
     log(smi)
     # the main keys are the pyHICCUPS path at chr1 scale (phase 4); the
     # prefixed ones the other shapes, plans and the pyBHFDR caller

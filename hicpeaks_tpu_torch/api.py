@@ -30,9 +30,13 @@ every process returns the whole genome's table, in the cooler's
 chromosome order.
 
 ``call_hiccups``/``call_bhfdr`` take the JAX API's parameters in its
-order, then the keyword ``device``; ``shape_bucket``, ``row_bucket`` and
-``max_count_floor`` are logged as having no effect (they shared XLA
-executables; eager PyTorch compiles nothing).
+order, then the keyword ``device``.  ``device`` defaults to the card (in
+a process group, the process's own card,
+``parallel.launch.process_device``), or with a ``mesh`` to the mesh's
+own device (``mesh.first_device``, this process's first tile, where the
+reductions land); the CPU runs only what names it.  ``shape_bucket``,
+``row_bucket`` and ``max_count_floor`` are logged as having no effect
+(they shared XLA executables; eager PyTorch compiles nothing).
 """
 from __future__ import annotations
 
@@ -52,7 +56,7 @@ from .cli.common import chrom_selected
 from .core import engine
 from .core.config import BHFDRConfig, HiccupsConfig
 from .ops.band import bands_from_cooler
-from .parallel.launch import world
+from .parallel.launch import process_device, world
 from .parallel.mesh import check_mesh
 from .parallel.multihost import (assign_chroms, gather_tables,
                                  sharded_bands_from_cooler)
@@ -137,6 +141,8 @@ def _run(kind, cooler_uri, cfg, chroms, device, checkpoint_dir, dtype,
     for name, value in no_effect.items():
         if value != _NO_EFFECT[name]:
             log.info('%s=%r has no effect on this engine', name, value)
+    if device is None:
+        device = process_device() if mesh is None else mesh.first_device
     device = engine.resolve_device(device)
     caller = engine.hiccups_chrom if kind == 'hiccups' else engine.bhfdr_chrom
     clr = CoolerLite(cooler_uri)
@@ -223,7 +229,7 @@ def _run(kind, cooler_uri, cfg, chroms, device, checkpoint_dir, dtype,
             attempt = 0
             while True:
                 try:
-                    table = caller(bands, cfg, device, mesh=mesh,
+                    table = caller(bands, cfg, mesh=mesh, device=device,
                                    scan_backend=scan_backend,
                                    bh_backend=bh_backend, check=check)
                     break
@@ -279,11 +285,12 @@ def call_hiccups(cooler_uri, cfg: HiccupsConfig = None, chroms=('#', 'X'),
                  mesh=None, scan_backend='auto', checkpoint_dir=None,
                  dtype=np.float32, profile_dir=None, shape_bucket=4096,
                  bh_backend='auto', check=False, row_bucket=8,
-                 max_count_floor=None, *, device):
+                 max_count_floor=None, *, device=None):
     """-> {chrom_label: {(x_bp, y_bp): 10-tuple}} (see
     ``engine.hiccups_chrom``, whose ``scan_backend``, ``bh_backend`` and
-    ``check`` these are), every chromosome on ``device``, or on ``mesh``'s
-    tiles.  The parameters are the JAX API's (module docstring)."""
+    ``check`` these are), every chromosome on ``device`` (default the
+    card), or on ``mesh``'s tiles.  The parameters are the JAX API's
+    (module docstring)."""
     return _run('hiccups', cooler_uri, cfg or HiccupsConfig(), chroms,
                 device, checkpoint_dir, dtype, scan_backend, bh_backend,
                 check, mesh, profile_dir=profile_dir,
@@ -295,7 +302,7 @@ def call_bhfdr(cooler_uri, cfg: BHFDRConfig = None, chroms=('#', 'X'),
                mesh=None, scan_backend='auto', checkpoint_dir=None,
                dtype=np.float32, profile_dir=None, shape_bucket=4096,
                bh_backend='auto', check=False, row_bucket=8,
-               max_count_floor=None, *, device):
+               max_count_floor=None, *, device=None):
     """-> {chrom_label: {(x_bp, y_bp): 7-tuple}} (see
     ``engine.bhfdr_chrom``), every chromosome on ``device`` or on
     ``mesh``'s tiles; the parameters are those of :func:`call_hiccups`."""

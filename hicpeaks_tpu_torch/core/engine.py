@@ -75,13 +75,11 @@ SCAN_BACKENDS = ('auto', 'pallas', 'jnp', 'validate', 'pallas-interpret')
 BH_BACKENDS = ('auto', 'host', 'device')
 
 
-def resolve_device(device):
-    """``device`` as a torch.device; a CUDA device on a machine without
-    CUDA raises RuntimeError rather than running anywhere else."""
-    if device is None:
-        raise TypeError('a device is required (or a mesh, on whose devices '
-                        'the tiles run)')
-    device = torch.device(device)
+def resolve_device(device=None):
+    """``device`` as a torch.device, None being the card (``'cuda'``); a
+    CUDA device on a machine without CUDA raises RuntimeError rather than
+    running anywhere else: the CPU runs only what asks for it."""
+    device = torch.device('cuda' if device is None else device)
     if device.type == 'cuda' and not torch.cuda.is_available():
         raise RuntimeError(f'device {device} requested but CUDA is not '
                            'available')
@@ -775,12 +773,13 @@ def _gather_prod(prod, pixels):
     return stacked[i, di, xi].cpu().numpy()
 
 
-def hiccups_chrom(bands: ChromBands, cfg: HiccupsConfig, device=None,
-                  mesh=None, scan_backend='auto', bh_backend='auto',
-                  check=False, ir_backend='host'):
+def hiccups_chrom(bands: ChromBands, cfg: HiccupsConfig, mesh=None,
+                  scan_backend='auto', bh_backend='auto', check=False,
+                  ir_backend='host', *, device=None):
     """Two-background multi-parameter caller (reference callers.py:44-362)
-    on one ``device``.  Returns {(x_bp, y_bp): (cen_x, cen_y, radius, O,
-    FoldK, pK, qK, FoldY, pY, qY)} in bp, the table of
+    on one ``device`` (default the card; JAX's parameters in its order,
+    then the keyword ``device``).  Returns {(x_bp, y_bp): (cen_x, cen_y,
+    radius, O, FoldK, pK, qK, FoldY, pY, qY)} in bp, the table of
     ``hicpeaks_tpu.core.engine.hiccups_chrom`` with the same
     ``scan_backend``, ``bh_backend`` and ``check`` (:func:`resolve_route`).
 
@@ -880,12 +879,12 @@ def hiccups_chrom(bands: ChromBands, cfg: HiccupsConfig, device=None,
     return final_table
 
 
-def bhfdr_chrom(bands: ChromBands, cfg: BHFDRConfig, device=None,
-                mesh=None, scan_backend='auto', bh_backend='auto',
-                check=False, ir_backend='host'):
+def bhfdr_chrom(bands: ChromBands, cfg: BHFDRConfig, mesh=None,
+                scan_backend='auto', bh_backend='auto', check=False,
+                ir_backend='host', *, device=None):
     """Donut-only caller with one global BH (reference callers.py:364-590)
-    on one ``device``.  Returns {(x_bp, y_bp): (cen_x, cen_y, radius, O,
-    Fold, p, q)} in bp, the table of
+    on one ``device`` (default the card).  Returns {(x_bp, y_bp): (cen_x,
+    cen_y, radius, O, Fold, p, q)} in bp, the table of
     ``hicpeaks_tpu.core.engine.bhfdr_chrom``; the routes, the checks, the
     dtype rules, ``mesh`` and ``ir_backend`` are those of
     :func:`hiccups_chrom`.  On a mesh the global BH's fixed point sums

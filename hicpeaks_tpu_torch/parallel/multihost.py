@@ -118,7 +118,7 @@ def _host_sum_int(x):
 
 
 def sharded_bands_from_cooler(clr, chrom, maxapart, maxww, ww_min, mesh,
-                              dtype=np.float32, weight_name='weight',
+                              dtype=np.float64, weight_name='weight',
                               lane_pad=128, sublane_pad=8):
     """Per-process band ingestion for a tile-sharded chromosome (JAX
     ``multihost.py:94-232``).
@@ -134,7 +134,8 @@ def sharded_bands_from_cooler(clr, chrom, maxapart, maxww, ww_min, mesh,
     padded width ``Lpm`` is a multiple of ``n_tiles * CSUM_BLOCK``: a
     tile never splits a csum block, the partials merge by placement, and
     IR is bit-identical to the single-process loader's at any process
-    count.  The vectors are ``Lpm`` long."""
+    count.  The vectors are ``Lpm`` long.  The slabs and vectors are
+    ``dtype``, float64 by default as in JAX."""
     from ..ops.band import (CSUM_BLOCK, ChromBands, _round_up, blocked_csum,
                             fold_blocked_csum)
     res = clr.binsize
