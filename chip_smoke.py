@@ -125,15 +125,29 @@ It exits non-zero on any failure, and without a CUDA card.  Phases:
    union of its kernels, copies and memsets) and idle share, the five
    kernels with the most device time, each hand-written kernel's traced
    time beside its CUDA-event time from phases 4 and 6, and the card's
-   nvidia-smi line; one ``trace`` JSON line.
+   nvidia-smi line; one ``trace`` JSON line;
+13. the prefetch thread's staging, on 9c's genome cooler before it is
+   removed: ``api.call_hiccups`` on chromosomes 1-3 and ``api.call_bhfdr``
+   on all 23, on the card with ``profile_dir``; every chromosome called
+   staged once (``engine.stage_chrom_arrays.staged``), the kernels
+   launched once a chromosome as the fused route does, each table == the
+   engine's on ``bands_from_cooler``'s unstaged bands, pyBHFDR's also ==
+   9c's; in the trace, each chromosome's slab after the first copied as
+   ``Memcpy HtoD (Pinned -> Device)`` on a stream none of its kernels runs
+   on, and no slab as a pageable copy.  Printed per chromosome: the
+   copy's traced ms and bytes, how long it overlapped the previous
+   chromosome's kernels, and the consumer's wait from its call's start
+   (the ``Chrom:<label>`` mark) to its first kernel; each call's peak
+   device memory; one ``staging`` JSON line.
 
     python3 chip_smoke.py --crossing-only
 
 runs phases 1 and 8f alone, in a process that holds nothing else, and
 prints no result line; ``--pipeline-only`` does the same for phases 9 and
 10, ``--multi-only`` for phases 1 and 11 (with phases 9b and 9c first,
-for their coolers), and ``--trace-only`` for phases 1 and 12 (on a chr1
-cooler written and balanced as 9b's).
+for their coolers), and ``--trace-only`` for phases 1, 12 and 13 (12 on
+a chr1 cooler written and balanced as 9b's, 13 on 9c's genome cut to
+chromosomes 1-3).
 
 Before the result lines, one ``defaults:`` line gives phases 3 and 12's
 JAX-form calls (no ``device``): their peaks, launches and equality with
@@ -2144,14 +2158,213 @@ def trace_check(device, tmp, counters, uri, smi, kernel_ms=None):
     return out
 
 
+# phase 13: the staged host-to-device copies as a trace names them
+PINNED_COPY = 'Memcpy HtoD (Pinned -> Device)'
+PAGEABLE_COPY = 'Memcpy HtoD (Pageable -> Device)'
+
+
+def staging_summary(path, labels, slab_bytes):
+    """What a Chrome trace of ``api._run`` shows of the staging, for each
+    chromosome of ``labels`` in call order: its call's span (the
+    ``Chrom:<label>`` mark) and the kernels inside it, and its slab's
+    host-to-device copy, the copy of ``slab_bytes[label]`` bytes, matched
+    from the last chromosome back (each chromosome's copies go out in
+    call order on one stream; the first chromosome's may fall before the
+    capture starts).  Per chromosome: the copy's name, stream, traced ms
+    and bytes, its overlap with the previous chromosome's kernels, and
+    the consumer's wait from its call's start to its first kernel."""
+    with open(path) as f:
+        events = [e for e in json.load(f)['traceEvents']
+                  if e.get('ph') == 'X' and 'dur' in e]
+    marks = {e['name'][len('Chrom:'):]: e for e in events
+             if e.get('cat') == 'user_annotation'
+             and e['name'].startswith('Chrom:')}
+    kernels = sorted((e for e in events if e.get('cat') == 'kernel'),
+                     key=lambda e: float(e['ts']))
+    copies = sorted((e for e in events if e.get('cat') == 'gpu_memcpy'
+                     and 'HtoD' in e['name']), key=lambda e: float(e['ts']))
+    if set(marks) != set(labels):
+        raise AssertionError(f'[13] {path}: marks {sorted(marks)}, called '
+                             f'{labels}')
+    if copies and 'bytes' not in copies[0].get('args', {}):
+        raise AssertionError(f'[13] a copy event without bytes: {copies[0]}')
+    slab, before = {}, len(copies)
+    for label in reversed(labels):
+        for j in range(before - 1, -1, -1):
+            if int(copies[j]['args']['bytes']) == slab_bytes[label]:
+                slab[label], before = copies[j], j
+                break
+    out, prev = [], None
+    for label in labels:
+        m = marks[label]
+        s, e = float(m['ts']), float(m['ts']) + float(m['dur'])
+        mine = [(float(k['ts']), float(k['ts']) + float(k['dur']),
+                 k['args'].get('stream')) for k in kernels
+                if s <= float(k['ts']) <= e]
+        if not mine:
+            raise AssertionError(f'[13] chromosome {label}: no kernel in its '
+                                 'call')
+        rec = dict(chrom=label, bytes=slab_bytes[label],
+                   wait_ms=(mine[0][0] - s) / 1e3, call_ms=(e - s) / 1e3,
+                   kernel_streams=sorted({k[2] for k in mine}))
+        c = slab.get(label)
+        if c is not None:
+            a, b = float(c['ts']), float(c['ts']) + float(c['dur'])
+            rec.update(copy=c['name'], copy_stream=c['args'].get('stream'),
+                       copy_ms=float(c['dur']) / 1e3,
+                       copy_gb_s=slab_bytes[label] / float(c['dur']) / 1e3,
+                       lead_ms=(s - b) / 1e3)
+            if prev is not None:
+                rec['overlap_ms'] = union_ms(
+                    [(max(a, x), min(b, y)) for x, y, _ in prev
+                     if x < b and y > a])
+                rec['overlapped'] = rec['overlap_ms'] > 0
+        out.append(rec)
+        prev = mine
+    pageable = [c for c in copies if c['name'] == PAGEABLE_COPY
+                and int(c['args']['bytes']) in slab_bytes.values()]
+    return out, len(pageable)
+
+
+def staging_check(device, tmp, counters, uri, smi, genome_tables):
+    """Phase 13: the prefetch thread's staging on 9c's genome cooler at
+    ``uri``: ``api.call_hiccups`` on chromosomes 1-3 and
+    ``api.call_bhfdr`` on every chromosome, on the card with
+    ``profile_dir``.  Every chromosome called is staged once, and each
+    table == the engine's on ``bands_from_cooler``'s unstaged bands
+    (pyBHFDR's also == ``genome_tables``, 9c's); in the trace each
+    chromosome's slab after the first goes out as a pinned copy on a
+    stream none of its kernels runs on, and no slab as a pageable copy.
+    Then ``call_hiccups`` again with the staging switched off, the path
+    before staging: each slab a pageable copy on the kernels' stream,
+    the same tables.  Prints per chromosome the copy's ms and bytes, how
+    long it overlapped the previous chromosome's kernels, and the
+    consumer's wait from its call's start to its first kernel; and each
+    call's peak device memory."""
+    import numpy as np
+    import torch
+    from hicpeaks_tpu_torch import api
+    from hicpeaks_tpu_torch.core import engine
+    from hicpeaks_tpu_torch.core.config import BHFDRConfig, HiccupsConfig
+    from hicpeaks_tpu_torch.io.coolerlite import CoolerLite
+    from hicpeaks_tpu_torch.ops.band import bands_from_cooler
+    t_phase = time.perf_counter()
+    clr = CoolerLite(uri)
+    names = list(clr.chromnames)
+    real_stage = engine.stage_chrom_arrays
+    out = {}
+    for tag, tool, staging, keys in (('pyHICCUPS', 'pyHICCUPS', True,
+                                      names[:3]),
+                                     ('pyHICCUPS_unstaged', 'pyHICCUPS',
+                                      False, names[:3]),
+                                     ('pyBHFDR', 'pyBHFDR', True, names)):
+        call, cfg, fn = (
+            (api.call_hiccups, HiccupsConfig(), engine.hiccups_chrom)
+            if tool == 'pyHICCUPS' else
+            (api.call_bhfdr, BHFDRConfig(), engine.bhfdr_chrom))
+        labels = [k.lstrip('chr') for k in keys]
+        tdir = os.path.join(tmp, f'staging.{tag}')
+        staged = real_stage.staged
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        if not staging:
+            engine.stage_chrom_arrays = lambda bands, *, device=None: None
+        try:
+            tables, wall, launches = run_counted(
+                counters, lambda: call(uri, cfg, chroms=tuple(labels),
+                                       device=device, profile_dir=tdir))
+        finally:
+            engine.stage_chrom_arrays = real_stage
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        staged = real_stage.staged - staged
+        want_launches = {k: n * len(labels)
+                         for k, n in FUSED_LAUNCHES[tool].items()}
+        if staged != len(labels) * staging or list(tables) != labels or \
+                launches != want_launches:
+            raise AssertionError(
+                f'[13] {tag}: {staged} chromosomes staged, tables '
+                f'{list(tables)}, launches {launches}; called {labels}, '
+                f'launches {want_launches}')
+        slab_bytes, t0 = {}, time.perf_counter()
+        for key, label in zip(keys, labels):
+            bands = bands_from_cooler(clr, key, cfg.maxapart, cfg.maxww,
+                                      cfg.ww_min, dtype=np.float32,
+                                      weight_name=cfg.clr_weight_name,
+                                      keep_sparse=False)
+            slab_bytes[label] = bands.raw.nbytes
+            want = (fn(bands, cfg, device=device) if staging
+                    else out[tool]['tables'][label])
+            if want != tables[label]:
+                raise AssertionError(f'[13] {tag} chromosome {label}: the '
+                                     'table differs from the unstaged '
+                                     'engine\'s')
+        t_ref = time.perf_counter() - t0
+        if tool == 'pyBHFDR' and tables != genome_tables:
+            raise AssertionError('[13] pyBHFDR: the staged genome tables '
+                                 'differ from phase 9c\'s')
+        files = os.listdir(tdir)
+        if len(files) != 1:
+            raise AssertionError(f'[13] {tag}: trace files {files}')
+        chroms, n_pageable = staging_summary(os.path.join(tdir, files[0]),
+                                             labels, slab_bytes)
+        if staging:
+            bad = [r['chrom'] for r in chroms[1:]
+                   if r.get('copy') != PINNED_COPY
+                   or r['copy_stream'] in r['kernel_streams']]
+            bad += ['pageable'] * n_pageable
+        else:
+            bad = [r['chrom'] for r in chroms
+                   if r.get('copy') != PAGEABLE_COPY
+                   or r['copy_stream'] not in r['kernel_streams']]
+        if bad:
+            raise AssertionError(
+                f'[13] {tag}: chromosomes {bad} without a '
+                + ('pinned slab copy on a stream of its own, or a pageable '
+                   'slab copy' if staging else
+                   'pageable slab copy on the kernels\' stream')
+                + f': {chroms}')
+        for r in chroms:
+            log(f'[13] {tag} chr{r["chrom"]}: slab {r["bytes"]} B; ' + (
+                f'{r["copy"][13:-1]} copy {r["copy_ms"]:.4f} ms '
+                f'({r["copy_gb_s"]:.2f} GB/s) on stream {r["copy_stream"]},'
+                f' ending {-r["lead_ms"]:+.3f} ms from the call\'s start'
+                + (f', over the previous kernels {r["overlap_ms"]:.4f} ms'
+                   if 'overlap_ms' in r else '')
+                if 'copy_ms' in r else 'copy before the capture')
+                + f'; kernels on {r["kernel_streams"]}; call '
+                f'{r["call_ms"]:.3f} ms, wait to its first kernel '
+                f'{r["wait_ms"]:.3f} ms')
+        n_over = sum(r.get('overlapped', False) for r in chroms)
+        log(f'[13] {tag}: {len(labels)} chromosomes called, {staged} '
+            'staged, tables == '
+            + ('the unstaged engine\'s' if staging else 'the staged call\'s')
+            + (' and phase 9c\'s' if tool == 'pyBHFDR' else '')
+            + f'; {n_over} of {len(chroms) - 1} later copies overlapped the '
+            f'previous kernels; call {wall:.2f} s (traced), '
+            + (f'unstaged builds and calls {t_ref:.2f} s; ' if staging
+               else '')
+            + f'peak device memory {peak_gib:.3f} GiB; launches '
+            f'{launches}; {smi}')
+        out[tag] = dict(chroms=chroms, staged=staged, wall_s=wall,
+                        peak_gib=peak_gib, launches=launches,
+                        overlapped=n_over, tables=tables,
+                        **({'unstaged_s': t_ref} if staging else {}))
+    for r in out.values():
+        del r['tables']
+    out['phase_s'] = time.perf_counter() - t_phase
+    out['card'] = smi
+    log(f'[13] phase 13 in {out["phase_s"]:.2f} s')
+    return out
+
+
 def user_pipeline(device, counters, multi=True, trace=None):
     """Phase 9: the user pipeline on the card, every cooler read and
     written through the port's h5lite (the host has no h5py): (a) TXT ->
     toCooler, (b) both CLIs from a cooler, (c) a genome; then phase 10,
     the figures' path on (c)'s files, with ``multi`` phase 11c and 11d on
     (b)'s and (c)'s, and with ``trace`` (:func:`trace_check`'s ``smi``
-    and ``kernel_ms``) phase 12 on (b)'s.  Its files live under
-    build/smoke/ and are removed afterwards."""
+    and ``kernel_ms``) phase 12 on (b)'s and phase 13 on (c)'s.  Its files
+    live under build/smoke/ and are removed afterwards."""
     import shutil
     tmp = os.path.join(REPO, 'build', 'smoke')
     shutil.rmtree(tmp, ignore_errors=True)
@@ -2171,6 +2384,10 @@ def user_pipeline(device, counters, multi=True, trace=None):
             out['trace'] = trace_check(device, tmp, counters,
                                        files['chr1_uri'], **trace)
             log(json.dumps({'trace': out['trace']}))
+            out['staging'] = staging_check(
+                device, tmp, counters, files['genome_uri'], trace['smi'],
+                files['genome_results'])
+            log(json.dumps({'staging': out['staging']}))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return out
@@ -2215,8 +2432,9 @@ def main():
                     help='run phases 1 and 11 alone (11c and 11d on the '
                     'coolers of phases 9b and 9c, made first)')
     ap.add_argument('--trace-only', action='store_true',
-                    help='run phases 1 and 12 alone (12 on a chr1 cooler '
-                    'written as phase 9b writes it)')
+                    help='run phases 1, 12 and 13 alone (12 on a chr1 '
+                    'cooler written as phase 9b writes it, 13 on phase '
+                    '9c\'s genome cut to chromosomes 1-3)')
     ap.add_argument('--mesh-worker', nargs=4,
                     metavar=('MODE', 'URI', 'OUT', 'DEVICE'),
                     help=argparse.SUPPRESS)
@@ -2271,6 +2489,13 @@ def main():
                 'on the card')
             log(json.dumps({'trace': trace_check(device, tmp, counters, uri,
                                                  smi)}))
+            # 9c's genome cut to chromosomes 1-3
+            files = {}
+            genome_check(device, tmp, counters, keep=files,
+                         sizes={c: HG38[c] for c in ('1', '2', '3')})
+            log(json.dumps({'staging': staging_check(
+                device, tmp, counters, files['genome_uri'], smi,
+                files['genome_results'])}))
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
         log(smi)
@@ -2467,6 +2692,10 @@ def main():
                        'traced'][name],
                    trace_bhfdr_launches=pipeline['trace']['pyBHFDR'][
                        'traced'][name],
+                   staging_hiccups_launches=pipeline['staging'][
+                       'pyHICCUPS']['launches'][name],
+                   staging_bhfdr_launches=pipeline['staging']['pyBHFDR'][
+                       'launches'][name],
                    **{f'multires_{res}_launches': r['launches'][name]
                       for res, r in pipeline['figures']['multires'][
                           'res'].items()},

@@ -4,8 +4,16 @@ Port of ``hicpeaks_tpu/api.py``'s ``_run``, ``call_hiccups`` and
 ``call_bhfdr``: chromosomes stream through the device with per-chromosome
 durable checkpoints (JSON peak tables named ``<kind>.<chrom>.json``; a
 rerun resumes from them) and a prefetch thread that builds the next
-chromosome's host bands while the device works on the current one.  The
-consumer does the host-to-device copy (``engine.bands_to_device``).
+chromosome's host bands while the device works on the current one.
+Without a mesh the producer then stages the bands' host-to-device copies
+(``engine.stage_chrom_arrays``, as JAX's prefetch thread does): on a card
+through pinned memory on the card's copy stream, so the copy leaves the
+call's path and can overlap the previous chromosome's call.  The
+consumer's call picks the staged tensors up (``engine._staged_operands``):
+its stream waits on the staging event before the chromosome's first
+kernel.  A staging failure is logged with the chromosome, and the
+consumer then copies on its own stream; a mesh copies in the consumer
+(``engine.bands_to_device``).
 
 ``profile_dir`` captures the chromosome loop with ``torch.profiler``, in
 JAX's window (``jax.profiler.start_trace`` after the producer thread
@@ -13,7 +21,8 @@ starts, ``stop_trace`` in the loop's ``finally``, so a failed run still
 leaves its trace): host ops, and the card's kernels and copies when the
 device or a tile of ``mesh`` is CUDA.  The directory is made if missing,
 and each process writes one Chrome trace into it
-(:func:`trace_file_name`; open it in Perfetto or ``chrome://tracing``).
+(:func:`trace_file_name`; open it in Perfetto or ``chrome://tracing``),
+with each chromosome's call marked ``Chrom:<label>``.
 A capture on the card that holds no CUDA kernel raises RuntimeError once
 the file is written: the trace does not hide the device.
 
@@ -50,7 +59,7 @@ import threading
 import time
 
 import numpy as np
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, record_function
 
 from .cli.common import chrom_selected
 from .core import engine
@@ -186,12 +195,17 @@ def _run(kind, cooler_uri, cfg, chroms, device, checkpoint_dir, dtype,
         return bands, time.perf_counter() - t0
 
     # Pipelined ingestion: one producer thread builds the next chromosome's
-    # host bands (HDF5 read + native scatter) while the device works on the
-    # current one; maxsize=1 bounds in-flight bands to two chromosomes.  A
-    # global mesh builds in the consumer instead: its ingestion issues
-    # collectives, which must run in the same order on every process.
+    # host bands (HDF5 read + native scatter) and, without a mesh, stages
+    # their copies to the device, while the device works on the current
+    # one; maxsize=1 bounds the bands in flight to three chromosomes (one
+    # called, one queued, one in the build).  A global mesh builds in the
+    # consumer instead: its ingestion issues collectives, which must run in
+    # the same order on every process.
     band_q = queue.Queue(maxsize=1)
     stop = threading.Event()
+    # the producer names the card by its index: its current card is its
+    # own thread's
+    device = engine._indexed(device)
 
     def _producer():
         for key in todo:
@@ -202,6 +216,13 @@ def _run(kind, cooler_uri, cfg, chroms, device, checkpoint_dir, dtype,
             except BaseException as exc:   # re-raised on the consumer side
                 band_q.put((key, None, 0.0, exc))
                 return
+            if mesh is None:
+                try:
+                    engine.stage_chrom_arrays(bands, device=device)
+                except Exception:
+                    log.exception('Chrom:%s, staging the host-to-device '
+                                  'copy failed; the call will copy',
+                                  key.lstrip('chr'))
             band_q.put((key, bands, t_band, None))
 
     producer = None
@@ -229,9 +250,11 @@ def _run(kind, cooler_uri, cfg, chroms, device, checkpoint_dir, dtype,
             attempt = 0
             while True:
                 try:
-                    table = caller(bands, cfg, mesh=mesh, device=device,
-                                   scan_backend=scan_backend,
-                                   bh_backend=bh_backend, check=check)
+                    # a trace marks each chromosome's call
+                    with record_function(f'Chrom:{label}'):
+                        table = caller(bands, cfg, mesh=mesh, device=device,
+                                       scan_backend=scan_backend,
+                                       bh_backend=bh_backend, check=check)
                     break
                 except Exception:
                     attempt += 1

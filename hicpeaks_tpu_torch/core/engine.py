@@ -86,13 +86,95 @@ def resolve_device(device=None):
     return device
 
 
+_OPERANDS = ('raw', 'w0', 'bias', 'IR', 'gap')
+
+
 def bands_to_device(bands: ChromBands, device):
     """The chromosome's device operands (raw, w0, bias, IR, gap) as
-    tensors, with the numpy dtypes kept (the port's
-    ``stage_chrom_arrays``)."""
+    tensors, with the numpy dtypes kept, copied now by the calling thread
+    on its current stream from the bands' pageable numpy arrays (on the
+    CPU the tensors share the arrays' memory).  The mesh routes copy
+    through it; one device copies through :func:`_staged_operands`, which
+    comes here only when nothing was staged for its device."""
     return {k: torch.as_tensor(np.ascontiguousarray(getattr(bands, k)),
                                device=device)
-            for k in ('raw', 'w0', 'bias', 'IR', 'gap')}
+            for k in _OPERANDS}
+
+
+class Staged(NamedTuple):
+    """One chromosome's operands staged by :func:`stage_chrom_arrays`."""
+    tensors: dict          # {operand: tensor on ``device``}
+    device: torch.device   # with its index
+    event: object          # torch.cuda.Event after the copies; None on CPU
+    pinned: dict           # the pinned host sources of the copies
+
+
+_COPY_STREAMS = {}   # one copy stream a card, made at its first staging
+
+
+def _indexed(device):
+    """``device`` with its index: a bare 'cuda' is the calling thread's
+    current card (the current card is per thread)."""
+    if device.type == 'cuda' and device.index is None:
+        return torch.device('cuda', torch.cuda.current_device())
+    return device
+
+
+def stage_chrom_arrays(bands: ChromBands, *, device=None):
+    """Issue the chromosome's host-to-device copies ahead of its call
+    (``hicpeaks_tpu``'s ``stage_chrom_arrays``), into ``bands._staged``.
+
+    ``api._run``'s prefetch thread calls it right after the band build,
+    so on a card the copies can overlap the previous chromosome's work:
+    each operand is copied into pinned host memory (torch's caching host
+    allocator, so each chromosome in flight holds blocks of its own),
+    then to ``device`` (default the card) with ``non_blocking`` on the
+    card's copy stream, and an event is recorded after the last copy.
+    The pinned sources stay with the staged record.  On the CPU the
+    record holds :func:`bands_to_device`'s tensors.  Each staged
+    chromosome adds one to ``stage_chrom_arrays.staged``."""
+    device = _indexed(resolve_device(device))
+    if device.type != 'cuda':
+        bands._staged = Staged(bands_to_device(bands, device), device, None,
+                               {})
+    else:
+        pinned = {k: torch.from_numpy(
+                      np.ascontiguousarray(getattr(bands, k))).pin_memory()
+                  for k in _OPERANDS}
+        with torch.cuda.device(device):
+            stream = _COPY_STREAMS.get(device)
+            if stream is None:
+                stream = _COPY_STREAMS.setdefault(
+                    device, torch.cuda.Stream(device=device))
+            with torch.cuda.stream(stream):
+                tensors = {k: t.to(device, non_blocking=True)
+                           for k, t in pinned.items()}
+                event = torch.cuda.Event()
+                event.record(stream)
+        bands._staged = Staged(tensors, device, event, pinned)
+    stage_chrom_arrays.staged += 1
+
+
+stage_chrom_arrays.staged = 0
+
+
+def _staged_operands(bands: ChromBands, device):
+    """The operands of a one-device call (JAX ``engine.py:151-181``): the
+    tensors :func:`stage_chrom_arrays` staged on ``device``, else a copy
+    now (:func:`bands_to_device`).  On a card the calling thread's current
+    stream waits on the staging event, and each staged tensor is recorded
+    on that stream, so the caching allocator keeps its block from the
+    copy stream until the kernels that read it are done.  A retried call
+    takes the same tensors again."""
+    staged = getattr(bands, '_staged', None)
+    if staged is None or staged.device != _indexed(device):
+        return bands_to_device(bands, device)
+    if staged.event is not None:
+        stream = torch.cuda.current_stream(staged.device)
+        stream.wait_event(staged.event)
+        for t in staged.tensors.values():
+            t.record_stream(stream)
+    return dict(staged.tensors)
 
 
 def _chunk_margin(plan):
@@ -473,7 +555,7 @@ def _hiccups_scored(bands: ChromBands, cfg: HiccupsConfig, plan, p_list,
     ww = tuple(cfg.ww)
     t_left = poolplan.left_threshold(total)
     sh, outs, decision = _scan_front(
-        bands_to_device(bands, device), bands, plan, p_list,
+        _staged_operands(bands, device), bands, plan, p_list,
         cfg.min_local_reads, min(ww), cfg.maxapart // bands.res, min(ww),
         route,
         lambda c: poolplan.emulate_freeze_hiccups(plan, c, total, ww),
@@ -906,7 +988,7 @@ def bhfdr_chrom(bands: ChromBands, cfg: BHFDRConfig, mesh=None,
 
     if mesh is None:
         sh, outs, decision = _scan_front(
-            bands_to_device(bands, device), bands, plan, (cfg.pw,),
+            _staged_operands(bands, device), bands, plan, (cfg.pw,),
             _BHFDR_THR, cfg.ww, cfg.maxapart // res, cfg.ww, route, replay,
             lambda c: poolplan.device_allowed_bhfdr(c, total, t_left, plan))
     else:

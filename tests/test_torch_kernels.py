@@ -295,6 +295,62 @@ def test_mesh_of_tiles_on_card_matches_one_device(device, caller):
     assert len(want) > 0 and got == want and list(got) == list(want)
 
 
+@pytest.mark.parametrize('caller', ['hiccups', 'bhfdr'])
+def test_staging_on_the_card(device, caller):
+    """``stage_chrom_arrays`` on the card: pinned host sources, device
+    tensors equal to the bands' arrays, an event on the card's one copy
+    stream; the pickup hands the staged tensors themselves to the call,
+    whose table == the unstaged call's."""
+    from hicpeaks_tpu_torch.core import engine
+    from hicpeaks_tpu_torch.core.config import BHFDRConfig, HiccupsConfig
+    from hicpeaks_tpu_torch.io.synth import synthesize_chrom
+    from hicpeaks_tpu_torch.ops import score
+    from hicpeaks_tpu_torch.ops.band import build_bands
+    res, L, maxapart, maxww = 10000, 1500, 600000, 10
+    num = maxapart // res + maxww + 1
+    b1, b2, ct, _, bias = synthesize_chrom(n_bins=L, res=res, seed=4,
+                                           depth=40.0, n_loops=60,
+                                           decay=0.75,
+                                           max_loop_span_bins=num - 12)
+    w = np.full(L, np.nan)
+    w[bias > 0] = 1.0 / bias[bias > 0]
+    if caller == 'hiccups':
+        cfg, call = HiccupsConfig(maxww=maxww, maxapart=maxapart), \
+            engine.hiccups_chrom
+    else:
+        cfg, call = BHFDRConfig(maxww=maxww, maxapart=maxapart), \
+            engine.bhfdr_chrom
+    want = call(build_bands(b1, b2, ct, w, L, num, 5, res), cfg,
+                device=device)
+    bands = build_bands(b1, b2, ct, w, L, num, 5, res)
+    staged = engine.stage_chrom_arrays.staged
+    engine.stage_chrom_arrays(bands, device=device)
+    assert engine.stage_chrom_arrays.staged == staged + 1
+    rec = bands._staged
+    assert rec.device == torch.device('cuda', torch.cuda.current_device())
+    assert rec.event is not None
+    assert engine._COPY_STREAMS[rec.device] != torch.cuda.current_stream()
+    for k, t in rec.tensors.items():
+        assert rec.pinned[k].is_pinned(), k
+        assert t.device == rec.device, k
+        np.testing.assert_array_equal(t.cpu().numpy(), getattr(bands, k))
+    raws = []
+    real = score.build_sheets
+
+    def build(raw, *a, **k):
+        raws.append(raw)
+        return real(raw, *a, **k)
+
+    score.build_sheets = build
+    try:
+        got = call(bands, cfg, device=device)
+    finally:
+        score.build_sheets = real
+    assert rec.event.query()
+    assert raws and raws[0] is rec.tensors['raw']
+    assert len(want) > 0 and got == want and list(got) == list(want)
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(device):
     raw, cband, eband, cand = _bands(16, 64, 60, 0, device)
     plan = tuple(poolplan.hiccups_pool_plan([2], [5], 7))

@@ -190,3 +190,42 @@ def test_card_trace_names_the_kernels(tmp_path, call):
         names = [e['name'] for e in json.load(f)['traceEvents']
                  if e.get('cat') == 'kernel']
     assert tuple(sum(k in n for n in names) for k in KERNELS) == FUSED[call]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('call', list(FUSED))
+def test_card_trace_shows_the_staged_copies(tmp_path, call):
+    """On the card the prefetch thread stages every chromosome: each slab
+    after the first goes out as a pinned copy, on a stream none of the
+    kernels runs on, and the tables == the engine's on unstaged bands."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card: the CUDA kernels have no CPU mode')
+    from hicpeaks_tpu_torch.core import engine
+    from hicpeaks_tpu_torch.ops.band import bands_from_cooler
+    uri = _write_cooler(tmp_path / 'three.cool', (('1', 1600, 3),
+                                                  ('2', 1400, 4),
+                                                  ('3', 1200, 5)), 10000,
+                        None)
+    fn, cfg = getattr(api, call), CALLS[call]
+    staged = engine.stage_chrom_arrays.staged
+    got = fn(uri, cfg, device='cuda', profile_dir=str(tmp_path / 'trace'))
+    assert engine.stage_chrom_arrays.staged - staged == 3
+    caller = engine.hiccups_chrom if call == 'call_hiccups' \
+        else engine.bhfdr_chrom
+    slabs = {}
+    for c in ('1', '2', '3'):
+        bands = bands_from_cooler(CoolerLite(uri), c, cfg.maxapart,
+                                  cfg.maxww, cfg.ww_min, dtype=np.float32,
+                                  weight_name=cfg.clr_weight_name)
+        slabs[c] = bands.raw.nbytes
+        assert got[c] == caller(bands, cfg, device='cuda'), c
+    with open(_traces(tmp_path / 'trace')[0]) as f:
+        events = json.load(f)['traceEvents']
+    kernel_streams = {e['args']['stream'] for e in events
+                      if e.get('cat') == 'kernel'}
+    copies = [e for e in events if e.get('cat') == 'gpu_memcpy'
+              and 'HtoD' in e['name']
+              and int(e['args']['bytes']) in (slabs['2'], slabs['3'])]
+    assert [e['name'] for e in copies] == \
+        ['Memcpy HtoD (Pinned -> Device)'] * 2
+    assert not {e['args']['stream'] for e in copies} & kernel_streams

@@ -50,6 +50,67 @@ ALLOWED = {
         'takes per-tile tensor lists and the pass-B kernel wrapper where '
         'JAX took sharded arrays and a scan_backend string',
 }
+# What the port leaves out of JAX's public API, by module or by module and
+# name, each with its reason: the module it moved to, or ROADMAP's "Do not
+# port" (a stale entry fails)
+_SCORE_HOST = ('float64 host completion: moved to core.hostcomplete, '
+               'beside the engine that calls it')
+NOT_PORTED = {
+    'core.flagship':
+        'ROADMAP "Do not port": the jitted one-step demo for '
+        '__graft_entry__.py and the TPU benchmarks',
+    'ops.pallas_scan':
+        'the Pallas scans: ported as hand-written CUDA, ops.cuda_scan on '
+        'csrc/scan_pass_a.cu and csrc/scan_pass_b.cu',
+    'ops.pallas_hist':
+        'the Pallas histogram: ported as hand-written CUDA, ops.cuda_hist '
+        'on csrc/chunk_hist.cu',
+    'cli.common.enable_compilation_cache':
+        'ROADMAP "Do not port": the XLA compilation cache; eager PyTorch '
+        'compiles nothing',
+    'ops.scan.scan_debug_states':
+        'ROADMAP "Do not port": a testing hook only JAX\'s tests/test_scan.py '
+        'calls',
+    'parallel.launch.global_tile_mesh':
+        'moved to parallel.multihost.global_tile_mesh, which takes the '
+        'process\'s own devices',
+    'parallel.tiles.shard_map':
+        'a JAX version shim; the port runs its tiles one by one '
+        '(parallel.tiles), with no shard_map',
+    'ops.score.bias_product_host':
+        'the host Bprod precompute: ops.score.build_sheets derives Bprod on '
+        'the device',
+    'ops.score.build_sheets_device':
+        'moved to ops.score.build_sheets (no jit, and no packed slab: '
+        'ROADMAP "Do not port" _SlabEnc)',
+    'ops.score.gap_reject_host':
+        'the host gap filter: ops.score.gap_reject_device runs in '
+        'ops.score.build_sheets',
+    'ops.score.gap_vector':
+        'gap bins from a dense cband; the bands carry ``gap`` from '
+        'ops.band, and nothing in JAX calls it',
+    'ops.score.chunk_bh_histogram':
+        'per-pixel chunked q on the device: the engine keeps a superset by '
+        'ops.score.chunk_thresholds/chunk_keep and completes q in '
+        'core.hostcomplete',
+    'ops.score.chunk_bh_keep':
+        'moved to ops.score.chunk_thresholds and chunk_keep, called by '
+        'core.engine._keep_batched',
+    'ops.score.chunk_bh_keep_batched':
+        'moved to ops.score.chunk_thresholds and chunk_keep, called by '
+        'core.engine._keep_batched',
+    'ops.score.chunk_hist_split':
+        'ROADMAP "Do not port": the split histogram cut MXU work; the CUDA '
+        'histogram (ops.cuda_hist) sends the tail to atomics',
+    'ops.score.rank_counts':
+        'global ranks by a compare-reduce scan; ops.score.global_bh_keep '
+        'counts them, and nothing in JAX calls it',
+    'ops.score.host_bh': _SCORE_HOST,
+    'ops.score.host_bh_complete': _SCORE_HOST,
+    'ops.score.host_chunk_complete': _SCORE_HOST,
+    'ops.score.host_chunk_dense': _SCORE_HOST,
+    'ops.score.host_chunk_qtab64': _SCORE_HOST,
+}
 DEVICE_DEFAULTS = (None, 'cuda')
 _POSITIONAL = (inspect.Parameter.POSITIONAL_ONLY,
                inspect.Parameter.POSITIONAL_OR_KEYWORD)
@@ -94,6 +155,27 @@ def _public(mod):
                                               or mname == '__init__'):
                     out[f'{name}.{mname}'] = m
     return out
+
+
+def _jax_api(mod):
+    """The names of :func:`_public`, and the jitted functions the module
+    defines (``jax.jit`` hides them from ``inspect.isfunction``)."""
+    names = set(_public(mod))
+    for name, obj in vars(mod).items():
+        wrapped = getattr(obj, '__wrapped__', None)
+        if not name.startswith('_') and inspect.isfunction(wrapped) and \
+                wrapped.__module__ == mod.__name__:
+            names.add(name)
+    return names
+
+
+def _has(mod, qualname):
+    obj = mod
+    for part in qualname.split('.'):
+        if not hasattr(obj, part):
+            return False
+        obj = getattr(obj, part)
+    return True
 
 
 def _same(a, b):
@@ -177,6 +259,45 @@ def test_allow_list_names_shared_functions():
         assert name in _public(_import('hicpeaks_tpu', module)), key
         assert name in _public(_import('hicpeaks_tpu_torch', module)), key
         assert reason.strip(), key
+
+
+@pytest.mark.parametrize('module', sorted(_modules(hicpeaks_tpu)))
+def test_jax_api_is_ported_or_named(module):
+    """Every public function and class method a JAX module defines is in
+    the port's module of the same name, defined there or imported into it
+    (``ops.score.chunk_hist`` comes from ``ops/cuda_hist.py``), or is in
+    :data:`NOT_PORTED`; a JAX module the port lacks is there whole.  A
+    stale entry fails."""
+    jmod = _import('hicpeaks_tpu', module)
+    if module not in SHARED:
+        assert module in NOT_PORTED, f'{module} is neither ported nor named'
+        assert not any(k.startswith(f'{module}.') for k in NOT_PORTED)
+        return
+    assert module not in NOT_PORTED, f'{module} is ported but named'
+    tmod = _import('hicpeaks_tpu_torch', module)
+    missing, stale = [], []
+    for name in sorted(_jax_api(jmod)):
+        key = f'{module}.{name}'
+        if _has(tmod, name):
+            if key in NOT_PORTED:
+                stale.append(key)
+        elif key not in NOT_PORTED:
+            missing.append(key)
+    assert not missing, f'neither ported nor named: {missing}'
+    assert not stale, f'named in NOT_PORTED but ported: {stale}'
+
+
+def test_not_ported_names_jax_functions():
+    """Every entry of :data:`NOT_PORTED` is a JAX module or one of its
+    public functions, with its reason."""
+    jmods = _modules(hicpeaks_tpu)
+    for key, reason in NOT_PORTED.items():
+        assert reason.strip(), key
+        if key in jmods:
+            continue
+        module, name = key.rsplit('.', 1)
+        assert module in jmods, key
+        assert name in _jax_api(_import('hicpeaks_tpu', module)), key
 
 
 def test_departures_catch_a_shifted_device():
