@@ -1,0 +1,11 @@
+"""The fixture of the tests that need a CUDA card."""
+import pytest
+import torch
+
+
+@pytest.fixture
+def card():
+    """The card, for the tests marked ``cuda``; they skip without one."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    return torch.device('cuda', 0)
