@@ -22,7 +22,10 @@ leaves its trace): host ops, and the card's kernels and copies when the
 device or a tile of ``mesh`` is CUDA.  The directory is made if missing,
 and each process writes one Chrome trace into it
 (:func:`trace_file_name`; open it in Perfetto or ``chrome://tracing``),
-with each chromosome's call marked ``Chrom:<label>``.
+with each chromosome's call marked ``Chrom:<label>``.  The capture traces
+every thread (``core.spans.EveryThread``), so it holds the engine's stage
+spans and the prefetch thread's ``hicpeaks.band.read``, ``.build`` and
+``.stage``; the consumer's wait on the queue is ``hicpeaks.band.wait``.
 A capture on the card that holds no CUDA kernel raises RuntimeError once
 the file is written: the trace does not hide the device.
 
@@ -59,11 +62,12 @@ import threading
 import time
 
 import numpy as np
-from torch.profiler import ProfilerActivity, profile, record_function
+from torch.profiler import ProfilerActivity, record_function
 
 from .cli.common import chrom_selected
 from .core import engine
 from .core.config import BHFDRConfig, HiccupsConfig
+from .core.spans import EveryThread, span
 from .ops.band import bands_from_cooler
 from .parallel.launch import process_device, world
 from .parallel.mesh import check_mesh
@@ -234,14 +238,15 @@ def _run(kind, cooler_uri, cfg, chroms, device, checkpoint_dir, dtype,
     if profile_dir:
         os.makedirs(profile_dir, exist_ok=True)
         activities = trace_activities(device, mesh)
-        prof = profile(activities=activities)
+        prof = EveryThread(activities)
         prof.start()
     try:
         for key_i in todo:
             if global_mesh:
                 key, (bands, t_band), exc = key_i, build(key_i), None
             else:
-                key, bands, t_band, exc = band_q.get()
+                with span('hicpeaks.band.wait'):
+                    key, bands, t_band, exc = band_q.get()
             label = key.lstrip('chr')
             if exc is not None:
                 raise exc

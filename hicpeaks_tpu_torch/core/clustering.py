@@ -25,6 +25,8 @@ import numpy as np
 from scipy.signal import find_peaks, peak_widths
 from scipy.spatial import cKDTree
 
+from .spans import span
+
 
 def find_anchors(pos, min_count=3, min_dis=20000, wlen=200000, res=10000):
     """Detect 1-D marginal anchors: Counter histogram -> scipy find_peaks
@@ -156,42 +158,45 @@ def local_clustering(Donuts, LL, res, onlysummit=False, min_count=3, r=20000, su
     lower-left-background analogue (None for the bhfdr caller).
     Returns [(seed_pixel, centroid_pixel, radius_bins)].
     """
-    final_list = []
-    keys = list(Donuts)
-    if not keys:
+    with span('hicpeaks.clustering'):
+        final_list = []
+        keys = list(Donuts)
+        if not keys:
+            return final_list
+        x = np.asarray([k[0] for k in keys])
+        y = np.asarray([k[1] for k in keys])
+
+        x_anchors = find_anchors(x, min_count=min_count, min_dis=r, res=res)
+        y_anchors = find_anchors(y, min_count=min_count, min_dis=r, res=res)
+        r = max(r // res, 1)
+        visited = set()
+        lookup = set(zip(x.tolist(), y.tolist()))
+        for x_a in x_anchors:
+            for y_a in y_anchors:
+                sort_list = []
+                for i in range(x_a[1], x_a[2] + 1):
+                    for j in range(y_a[1], y_a[2] + 1):
+                        if (i, j) in lookup:
+                            sort_list.append((Donuts[(i, j)][0], (i, j)))
+                sort_list.sort(reverse=True)
+                _grow_clusters(sort_list, r, visited, final_list)
+
+        leftovers = [(Donuts[(i, j)][0], (i, j))
+                     for i, j in zip(x.tolist(), y.tolist())
+                     if (i, j) not in visited]
+        leftovers.sort(reverse=True)
+        _grow_clusters(leftovers, r, visited, final_list)
+
+        x_summits = set(a[0] for a in x_anchors)
+        y_summits = set(a[0] for a in y_anchors)
+        for i, j in zip(x.tolist(), y.tolist()):
+            if (i, j) in visited:
+                continue
+            if LL is not None:
+                qpass = Donuts[(i, j)][-1] + LL[(i, j)][-1] <= sumq
+            else:
+                qpass = Donuts[(i, j)][-1] <= sumq / 2
+            if qpass and ((not onlysummit) or (i in x_summits)
+                          or (j in y_summits)):
+                final_list.append(((i, j), (i, j), 0))
         return final_list
-    x = np.asarray([k[0] for k in keys])
-    y = np.asarray([k[1] for k in keys])
-
-    x_anchors = find_anchors(x, min_count=min_count, min_dis=r, res=res)
-    y_anchors = find_anchors(y, min_count=min_count, min_dis=r, res=res)
-    r = max(r // res, 1)
-    visited = set()
-    lookup = set(zip(x.tolist(), y.tolist()))
-    for x_a in x_anchors:
-        for y_a in y_anchors:
-            sort_list = []
-            for i in range(x_a[1], x_a[2] + 1):
-                for j in range(y_a[1], y_a[2] + 1):
-                    if (i, j) in lookup:
-                        sort_list.append((Donuts[(i, j)][0], (i, j)))
-            sort_list.sort(reverse=True)
-            _grow_clusters(sort_list, r, visited, final_list)
-
-    leftovers = [(Donuts[(i, j)][0], (i, j))
-                 for i, j in zip(x.tolist(), y.tolist()) if (i, j) not in visited]
-    leftovers.sort(reverse=True)
-    _grow_clusters(leftovers, r, visited, final_list)
-
-    x_summits = set(a[0] for a in x_anchors)
-    y_summits = set(a[0] for a in y_anchors)
-    for i, j in zip(x.tolist(), y.tolist()):
-        if (i, j) in visited:
-            continue
-        if LL is not None:
-            qpass = Donuts[(i, j)][-1] + LL[(i, j)][-1] <= sumq
-        else:
-            qpass = Donuts[(i, j)][-1] <= sumq / 2
-        if qpass and ((not onlysummit) or (i in x_summits) or (j in y_summits)):
-            final_list.append(((i, j), (i, j), 0))
-    return final_list

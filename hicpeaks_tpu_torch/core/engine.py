@@ -26,6 +26,12 @@ On the host: the freeze replay, the float64 completion
 (:mod:`.hostcomplete`), the fold gates, the cross-pair merge and the
 clustering (:mod:`.clustering`).
 
+Under a running ``torch.profiler`` capture each call is a
+``hicpeaks.call`` span holding its stages' spans (:mod:`.spans`):
+``hicpeaks.h2d``, ``.sheets``, ``.scan``, ``.replay``, ``.score``,
+``.dense_fallback``, ``.host_complete``, ``.merge``, ``.clustering``, and
+one ``hicpeaks.sync`` around each blocking device-to-host read.
+
 With a ``mesh`` (``parallel.mesh.TileMesh``) every route runs on column
 tiles (:mod:`..parallel.tiles`): the sheets are cut into tiles, pass A and
 pass B run once per tile on its halo-extended slab, the freeze gate is
@@ -59,6 +65,7 @@ from . import poolplan
 from .clustering import local_clustering
 from .config import BHFDRConfig, HiccupsConfig
 from .hostcomplete import _bhfdr_to_host, _compact_to_host, _dense_to_host
+from .spans import SYNC, span
 
 _BH_SLACK = 0.01   # chunk_bh_keep superset inflation: covers the f32 qtab's
                    # gammainc error near q ~ sig, so the device keep mask is
@@ -134,24 +141,25 @@ def stage_chrom_arrays(bands: ChromBands, *, device=None):
     record holds :func:`bands_to_device`'s tensors.  Each staged
     chromosome adds one to ``stage_chrom_arrays.staged``."""
     device = _indexed(resolve_device(device))
-    if device.type != 'cuda':
-        bands._staged = Staged(bands_to_device(bands, device), device, None,
-                               {})
-    else:
-        pinned = {k: torch.from_numpy(
-                      np.ascontiguousarray(getattr(bands, k))).pin_memory()
-                  for k in _OPERANDS}
-        with torch.cuda.device(device):
-            stream = _COPY_STREAMS.get(device)
-            if stream is None:
-                stream = _COPY_STREAMS.setdefault(
-                    device, torch.cuda.Stream(device=device))
-            with torch.cuda.stream(stream):
-                tensors = {k: t.to(device, non_blocking=True)
-                           for k, t in pinned.items()}
-                event = torch.cuda.Event()
-                event.record(stream)
-        bands._staged = Staged(tensors, device, event, pinned)
+    with span('hicpeaks.band.stage'):
+        if device.type != 'cuda':
+            bands._staged = Staged(bands_to_device(bands, device), device,
+                                   None, {})
+        else:
+            pinned = {k: torch.from_numpy(np.ascontiguousarray(
+                          getattr(bands, k))).pin_memory()
+                      for k in _OPERANDS}
+            with torch.cuda.device(device):
+                stream = _COPY_STREAMS.get(device)
+                if stream is None:
+                    stream = _COPY_STREAMS.setdefault(
+                        device, torch.cuda.Stream(device=device))
+                with torch.cuda.stream(stream):
+                    tensors = {k: t.to(device, non_blocking=True)
+                               for k, t in pinned.items()}
+                    event = torch.cuda.Event()
+                    event.record(stream)
+            bands._staged = Staged(tensors, device, event, pinned)
     stage_chrom_arrays.staged += 1
 
 
@@ -166,15 +174,16 @@ def _staged_operands(bands: ChromBands, device):
     on that stream, so the caching allocator keeps its block from the
     copy stream until the kernels that read it are done.  A retried call
     takes the same tensors again."""
-    staged = getattr(bands, '_staged', None)
-    if staged is None or staged.device != _indexed(device):
-        return bands_to_device(bands, device)
-    if staged.event is not None:
-        stream = torch.cuda.current_stream(staged.device)
-        stream.wait_event(staged.event)
-        for t in staged.tensors.values():
-            t.record_stream(stream)
-    return dict(staged.tensors)
+    with span('hicpeaks.h2d'):
+        staged = getattr(bands, '_staged', None)
+        if staged is None or staged.device != _indexed(device):
+            return bands_to_device(bands, device)
+        if staged.event is not None:
+            stream = torch.cuda.current_stream(staged.device)
+            stream.wait_event(staged.event)
+            for t in staged.tensors.values():
+                t.record_stream(stream)
+        return dict(staged.tensors)
 
 
 def _chunk_margin(plan):
@@ -279,7 +288,9 @@ def _check_finite(**named):
     first NaN's index."""
     for name, t in named.items():
         bad = torch.isnan(t)
-        if bool(bad.any()):
+        with span(SYNC):
+            found = bool(bad.any())
+        if found:
             at = tuple(torch.nonzero(bad)[0].tolist())
             raise FloatingPointError(f'checkify: NaN in {name} at {at}')
 
@@ -290,10 +301,13 @@ def _check_in_band(cnt, d_idx, x_idx, num_p, L):
     num_p and x + d < L); raise IndexError naming the first that does
     not."""
     for b in range(d_idx.shape[0]):
-        n = int(cnt[b])
+        with span(SYNC):
+            n = int(cnt[b])
         d, x = d_idx[b, :n].to(torch.int64), x_idx[b, :n].to(torch.int64)
         bad = (d < 0) | (d >= num_p) | (x < 0) | (x + d >= L)
-        if bool(bad.any()):
+        with span(SYNC):
+            found = bool(bad.any())
+        if found:
             k = int(torch.nonzero(bad)[0])
             raise IndexError(f'checkify: compacted pixel (d, x) = '
                              f'({int(d[k])}, {int(x[k])}) of background {b} '
@@ -323,31 +337,41 @@ def _scan_front(ops, bands, plan, p_list, thr, d_lo, d_hi, gap_s, route,
     held to the host replay.  Returns (sheets, {p: [KS, KE, YS, YE]},
     FreezeDecision)."""
     L = int(bands.L)
-    raw, cband, eband, Bprod, gap_drop, cand = score_ops.build_sheets(
-        ops['raw'], ops['w0'], ops['bias'], ops['IR'], ops['gap'],
-        bands.ww_min, L, d_lo, d_hi, gap_s)
+    with span('hicpeaks.sheets'):
+        raw, cband, eband, Bprod, gap_drop, cand = score_ops.build_sheets(
+            ops['raw'], ops['w0'], ops['bias'], ops['IR'], ops['gap'],
+            bands.ww_min, L, d_lo, d_hi, gap_s)
     sh = Sheets(raw, cband, eband, ops['IR'], Bprod, gap_drop, cand, L)
     if route.check:
         _check_finite(raw=raw, cband=cband, eband=eband, Bprod=Bprod)
     pass_a, pass_b = _scan_calls(route.scan)
-    counts = pass_a(raw, cand, plan, p_list, thr)
-    if route.device_gate:
-        allowed = device_gate(counts)
-    else:
-        decision = replay(counts.cpu().numpy())
-        allowed = torch.tensor(decision.allowed, dtype=torch.bool,
-                               device=raw.device)
-    outs = pass_b(raw, cband, eband, cand, allowed, plan, p_list, thr)
+    with span('hicpeaks.scan'):
+        counts = pass_a(raw, cand, plan, p_list, thr)
+        if route.device_gate:
+            allowed = device_gate(counts)
+        else:
+            decision = _replayed(replay, counts)
+            allowed = torch.tensor(decision.allowed, dtype=torch.bool,
+                                   device=raw.device)
+        outs = pass_b(raw, cband, eband, cand, allowed, plan, p_list, thr)
     if route.check:
         _check_finite(**{f'pass B {n} (p={p})': v for p, o in outs.items()
                          for n, v in zip(('KS', 'KE', 'YS', 'YE'), o)})
     if route.device_gate:
         counts_h, allowed_h = _to_host((counts, allowed))
-        decision = replay(counts_h)
+        with span('hicpeaks.replay'):
+            decision = replay(counts_h)
         if not np.array_equal(allowed_h, np.asarray(decision.allowed)):
             raise AssertionError(
                 'device freeze emulation diverged from the host replay')
     return sh, outs, decision
+
+
+def _replayed(replay, counts):
+    """The host gate: pass A's ``counts`` fetched and ``replay``ed."""
+    counts_h = _to_host(counts)
+    with span('hicpeaks.replay'):
+        return replay(counts_h)
 
 
 def _exact_capable(bands):
@@ -430,17 +454,18 @@ def _compact_batched(sh, BSV, BEV, wis_t, sig, o_cap, exact_mode, margin,
     Fold, cid, hist [B, S, C], prod [B, num_p, Lp], suspects) with the
     suspect bundle (cnt, d, x, cid, O, gap, thr) or () without
     ``exact_mode``."""
-    obs = _observe_batched(sh, BSV, BEV, wis_t, check=check)
-    O, cid, valid = obs[1], obs[6], obs[7]
-    B, S, C = cid.shape[0], s_rows, o_cap + 1
-    oc, cid0 = score_ops.chunk_pack(O, cid, valid, S, C)
-    hist = score_ops.chunk_hist(oc, cid0, S, C)             # [B*S, C]
-    _qtab, thr2 = score_ops.chunk_thresholds(hist, B, S, sig, _BH_SLACK,
-                                             O.dtype)
-    bundle, sus = _keep_batched(sh, obs, thr2, sig, o_cap, exact_mode,
-                                margin, check)
-    sus = sus + (thr2.to(torch.int32),) if sus else ()
-    return bundle + (hist.reshape(B, S, C), obs[5], sus)
+    with span('hicpeaks.score'):
+        obs = _observe_batched(sh, BSV, BEV, wis_t, check=check)
+        O, cid, valid = obs[1], obs[6], obs[7]
+        B, S, C = cid.shape[0], s_rows, o_cap + 1
+        oc, cid0 = score_ops.chunk_pack(O, cid, valid, S, C)
+        hist = score_ops.chunk_hist(oc, cid0, S, C)             # [B*S, C]
+        _qtab, thr2 = score_ops.chunk_thresholds(hist, B, S, sig, _BH_SLACK,
+                                                 O.dtype)
+        bundle, sus = _keep_batched(sh, obs, thr2, sig, o_cap, exact_mode,
+                                    margin, check)
+        sus = sus + (thr2.to(torch.int32),) if sus else ()
+        return bundle + (hist.reshape(B, S, C), obs[5], sus)
 
 
 def _score_device_bhfdr_compact(sh, bSV, bEV, sig, wi, check=False):
@@ -451,19 +476,20 @@ def _score_device_bhfdr_compact(sh, bSV, bEV, sig, wi, check=False):
 
     Returns the 11-slot bundle (cnt, d, x, O, ICE, Fold, p, E, m, gap,
     prod)."""
-    E, O, ICE, Fold, scored, prod = score_ops.expected_observed(
-        sh.raw, sh.cband, sh.IR, sh.Bprod, bSV, bEV, wi, sh.cand, sh.L)
-    pval = torch.where(scored, score_ops.poisson_sf(O, E), 1.0)
-    if check:
-        _check_finite(E=E, O=O, ICE=ICE, Fold=Fold, p=pval)
-    keep_sup, m, _ = score_ops.global_bh_keep(pval, scored, sig)
-    cnt, d_idx, x_idx = score_ops.compact_mask(keep_sup)
-    if check:
-        _check_in_band(cnt[None], d_idx[None], x_idx[None], O.shape[0],
-                       sh.L)
-    small = [_gather_flat_shared(a, d_idx, x_idx)
-             for a in (O, ICE, Fold, pval, E, sh.gap_drop)]
-    return (cnt, d_idx, x_idx, *small[:5], m, small[5], prod)
+    with span('hicpeaks.score'):
+        E, O, ICE, Fold, scored, prod = score_ops.expected_observed(
+            sh.raw, sh.cband, sh.IR, sh.Bprod, bSV, bEV, wi, sh.cand, sh.L)
+        pval = torch.where(scored, score_ops.poisson_sf(O, E), 1.0)
+        if check:
+            _check_finite(E=E, O=O, ICE=ICE, Fold=Fold, p=pval)
+        keep_sup, m, _ = score_ops.global_bh_keep(pval, scored, sig)
+        cnt, d_idx, x_idx = score_ops.compact_mask(keep_sup)
+        if check:
+            _check_in_band(cnt[None], d_idx[None], x_idx[None], O.shape[0],
+                           sh.L)
+        small = [_gather_flat_shared(a, d_idx, x_idx)
+                 for a in (O, ICE, Fold, pval, E, sh.gap_drop)]
+        return (cnt, d_idx, x_idx, *small[:5], m, small[5], prod)
 
 
 def _score_device_segmented(sh, bSV, bEV, sig, wi, check=False):
@@ -471,26 +497,27 @@ def _score_device_segmented(sh, bSV, bEV, sig, wi, check=False):
     ``o_cap`` None): lambda chunks, device p at each chunk's right edge,
     segmented BH by a sort, the gap filter and the row-major compaction.
     Returns the 8-slot bundle (cnt, d, x, O, ICE, Fold, p, q) and prod."""
-    E, O, ICE, Fold, scored, prod = score_ops.expected_observed(
-        sh.raw, sh.cband, sh.IR, sh.Bprod, bSV, bEV, wi, sh.cand, sh.L)
-    cid, rv, valid = score_ops.lambda_chunks(E, scored)
-    # JAX's right edge is weakly typed, so its p takes O's float32 whatever
-    # the bands' dtype: p and q are float32 igamma values, and XLA flushes
-    # float32 subnormals to zero
-    pval = score_ops.poisson_sf(O, rv.to(O.dtype))
-    pval = torch.where(valid & (pval >= torch.finfo(pval.dtype).tiny), pval,
-                       torch.where(valid, 0.0, 1.0))
-    qval = score_ops.segmented_bh(pval, cid, valid)
-    if check:
-        _check_finite(E=E, O=O, ICE=ICE, Fold=Fold, p=pval, q=qval)
-    keep = scored & (qval <= sig) & ~sh.gap_drop
-    cnt, d_idx, x_idx = score_ops.compact_mask(keep)
-    if check:
-        _check_in_band(cnt[None], d_idx[None], x_idx[None], O.shape[0],
-                       sh.L)
-    small = tuple(_gather_flat_shared(a, d_idx, x_idx)
-                  for a in (O, ICE, Fold, pval, qval))
-    return (cnt, d_idx, x_idx) + small, prod
+    with span('hicpeaks.score'):
+        E, O, ICE, Fold, scored, prod = score_ops.expected_observed(
+            sh.raw, sh.cband, sh.IR, sh.Bprod, bSV, bEV, wi, sh.cand, sh.L)
+        cid, rv, valid = score_ops.lambda_chunks(E, scored)
+        # JAX's right edge is weakly typed, so its p takes O's float32
+        # whatever the bands' dtype: p and q are float32 igamma values, and
+        # XLA flushes float32 subnormals to zero
+        pval = score_ops.poisson_sf(O, rv.to(O.dtype))
+        pval = torch.where(valid & (pval >= torch.finfo(pval.dtype).tiny),
+                           pval, torch.where(valid, 0.0, 1.0))
+        qval = score_ops.segmented_bh(pval, cid, valid)
+        if check:
+            _check_finite(E=E, O=O, ICE=ICE, Fold=Fold, p=pval, q=qval)
+        keep = scored & (qval <= sig) & ~sh.gap_drop
+        cnt, d_idx, x_idx = score_ops.compact_mask(keep)
+        if check:
+            _check_in_band(cnt[None], d_idx[None], x_idx[None], O.shape[0],
+                           sh.L)
+        small = tuple(_gather_flat_shared(a, d_idx, x_idx)
+                      for a in (O, ICE, Fold, pval, qval))
+        return (cnt, d_idx, x_idx) + small, prod
 
 
 def _score_dense(sh, bSV, bEV, sig, wi, chunked):
@@ -498,16 +525,17 @@ def _score_dense(sh, bSV, bEV, sig, wi, chunked):
     host branches of ``_score_one``): every valid pixel of the background
     fetched in row-major order, float64 BH on the host
     (``hostcomplete._dense_to_host``)."""
-    E, O, ICE, Fold, scored, prod = score_ops.expected_observed(
-        sh.raw, sh.cband, sh.IR, sh.Bprod, bSV, bEV, wi, sh.cand, sh.L)
-    if chunked:
-        cid, _rv, valid = score_ops.lambda_chunks(E, scored)
-    else:
-        cid, valid = torch.ones_like(scored, dtype=torch.int32), scored
-    _, d_idx, x_idx = score_ops.compact_mask(valid)
-    fetched = _to_host((d_idx, x_idx) + tuple(
-        _gather_flat_shared(a, d_idx, x_idx)
-        for a in (O, ICE, Fold, cid, E, sh.gap_drop)))
+    with span('hicpeaks.score'):
+        E, O, ICE, Fold, scored, prod = score_ops.expected_observed(
+            sh.raw, sh.cband, sh.IR, sh.Bprod, bSV, bEV, wi, sh.cand, sh.L)
+        if chunked:
+            cid, _rv, valid = score_ops.lambda_chunks(E, scored)
+        else:
+            cid, valid = torch.ones_like(scored, dtype=torch.int32), scored
+        _, d_idx, x_idx = score_ops.compact_mask(valid)
+        small = tuple(_gather_flat_shared(a, d_idx, x_idx)
+                      for a in (O, ICE, Fold, cid, E, sh.gap_drop))
+    fetched = _to_host((d_idx, x_idx) + small)
     return _dense_to_host(fetched, prod, sig, chunked)
 
 
@@ -539,10 +567,12 @@ def _score_one(sh, bSV, bEV, wi, sig, route, chunked, exact=None):
 
 
 def _to_host(tree):
-    """Tensors -> numpy arrays through nested tuples."""
+    """Tensors -> numpy arrays through nested tuples, one blocking read
+    (a ``hicpeaks.sync`` span) a tensor."""
     if isinstance(tree, tuple):
         return tuple(_to_host(t) for t in tree)
-    return tree.cpu().numpy()
+    with span(SYNC):
+        return tree.cpu().numpy()
 
 
 def _hiccups_scored(bands: ChromBands, cfg: HiccupsConfig, plan, p_list,
@@ -589,8 +619,9 @@ def _hiccups_scored(bands: ChromBands, cfg: HiccupsConfig, plan, p_list,
         if route.batched:
             # the batched audit failed: a histogram scorer at B = 1 would
             # repeat it, so this background goes straight to the dense one
-            res[b] = _score_dense(sh, outs[p][t], outs[p][t + 1],
-                                  cfg.siglevel, w, chunked=True)
+            with span('hicpeaks.dense_fallback'):
+                res[b] = _score_dense(sh, outs[p][t], outs[p][t + 1],
+                                      cfg.siglevel, w, chunked=True)
         else:
             res[b] = _score_one(sh, outs[p][t], outs[p][t + 1], w,
                                 cfg.siglevel, route, chunked=True,
@@ -676,19 +707,22 @@ def _mesh_front(bands, mesh, plan, p_list, thr, d_lo, d_hi, gap_s, route,
     on every tile (counts summed), the freeze gate replayed on the host,
     pass B on every tile.  Returns (TileSheets, per tile {p: [KS, KE, YS,
     YE]}, FreezeDecision)."""
-    ts = _mesh_sheets(bands, mesh, d_lo, d_hi, gap_s, ir_backend)
+    with span('hicpeaks.sheets'):
+        ts = _mesh_sheets(bands, mesh, d_lo, d_hi, gap_s, ir_backend)
     pass_a, pass_b = _scan_calls(route.scan)
 
     def field(k):
         return [sh and sh[k] for sh in ts.tiles]
 
     raw, cand = field(0), field(6)
-    counts = tiles.scan_pass_a_sharded(raw, cand, plan, p_list, thr, mesh,
-                                       pass_a)
-    decision = replay(counts.cpu().numpy())
-    allowed = torch.tensor(decision.allowed, dtype=torch.bool)
-    outs = tiles.scan_pass_b_sharded(raw, field(1), field(2), cand, allowed,
-                                     plan, p_list, thr, mesh, pass_b)
+    with span('hicpeaks.scan'):
+        counts = tiles.scan_pass_a_sharded(raw, cand, plan, p_list, thr,
+                                           mesh, pass_a)
+        decision = _replayed(replay, counts)
+        allowed = torch.tensor(decision.allowed, dtype=torch.bool)
+        outs = tiles.scan_pass_b_sharded(raw, field(1), field(2), cand,
+                                         allowed, plan, p_list, thr, mesh,
+                                         pass_b)
     return ts, outs, decision
 
 
@@ -734,33 +768,36 @@ def _hiccups_tiles(ts, outs_t, bgs, sig, o_cap, ctx, margin):
     B = len(bgs)
     exact_mode = ctx is not None
     obs = [None] * mesh.size
-    for i in mesh.local_tiles:
-        BSV = torch.stack([outs_t[i][p][t] for p, _, _, t in bgs])
-        BEV = torch.stack([outs_t[i][p][t + 1] for p, _, _, t in bgs])
-        wis = torch.tensor([w for _, w, _, _ in bgs], dtype=torch.int32,
-                           device=mesh.devices[i])
-        obs[i] = _observe_batched(ts.tiles[i], BSV, BEV, wis, c0=i * ts.T)
-    hist = tiles.chunk_hist_sharded(
-        [o and o[1] for o in obs], [o and o[6] for o in obs],
-        [o and o[7] for o in obs], S, C, mesh)
-    _qtab, thr2 = score_ops.chunk_thresholds(
-        hist, B, S, sig, _BH_SLACK, obs[mesh.local_tiles[0]][1].dtype)
-    parts, parts_s, prods = [], [], [None] * mesh.size
-    for i in mesh.local_tiles:
-        bundle, sus = _keep_batched(ts.tiles[i], obs[i],
-                                    thr2.to(mesh.devices[i]), sig, o_cap,
-                                    exact_mode, margin)
-        prods[i] = obs[i][5]
-        obs[i] = None
-        for got, out in ((bundle, parts), (sus, parts_s)):
-            if got:
-                h = _to_host(got)
-                out.append((i * ts.T, [tuple(a[b][:h[0][b]] for a in h[1:])
-                                       for b in range(B)]))
-    merged = tiles.merge_rowmajor(parts, mesh)
-    merged_s = tiles.merge_rowmajor(parts_s, mesh) if exact_mode else None
-    hist_b = _to_host(hist).reshape(B, S, C)
-    thr_h = _to_host(thr2.to(torch.int32))
+    with span('hicpeaks.score'):
+        for i in mesh.local_tiles:
+            BSV = torch.stack([outs_t[i][p][t] for p, _, _, t in bgs])
+            BEV = torch.stack([outs_t[i][p][t + 1] for p, _, _, t in bgs])
+            wis = torch.tensor([w for _, w, _, _ in bgs], dtype=torch.int32,
+                               device=mesh.devices[i])
+            obs[i] = _observe_batched(ts.tiles[i], BSV, BEV, wis,
+                                      c0=i * ts.T)
+        hist = tiles.chunk_hist_sharded(
+            [o and o[1] for o in obs], [o and o[6] for o in obs],
+            [o and o[7] for o in obs], S, C, mesh)
+        _qtab, thr2 = score_ops.chunk_thresholds(
+            hist, B, S, sig, _BH_SLACK, obs[mesh.local_tiles[0]][1].dtype)
+        parts, parts_s, prods = [], [], [None] * mesh.size
+        for i in mesh.local_tiles:
+            bundle, sus = _keep_batched(ts.tiles[i], obs[i],
+                                        thr2.to(mesh.devices[i]), sig, o_cap,
+                                        exact_mode, margin)
+            prods[i] = obs[i][5]
+            obs[i] = None
+            for got, out in ((bundle, parts), (sus, parts_s)):
+                if got:
+                    h = _to_host(got)
+                    out.append((i * ts.T, [tuple(a[b][:h[0][b]]
+                                                 for a in h[1:])
+                                           for b in range(B)]))
+        merged = tiles.merge_rowmajor(parts, mesh)
+        merged_s = tiles.merge_rowmajor(parts_s, mesh) if exact_mode else None
+        hist_b = _to_host(hist).reshape(B, S, C)
+        thr_h = _to_host(thr2.to(torch.int32))
     prod = tiles.TiledSheet(prods, mesh)
     res = []
     for b, (p, _, kind, _) in enumerate(bgs):
@@ -780,28 +817,29 @@ def _bhfdr_tiles(ts, outs_t, pw, wi, sig, exact):
     order; then float64 completion (``_bhfdr_to_host``)."""
     mesh = ts.mesh
     obs, pvals, scoreds = {}, [], []
-    for i in mesh.local_tiles:
-        sh = ts.tiles[i]
-        E, O, ICE, Fold, scored, prod = score_ops.expected_observed(
-            sh.raw, sh.cband, sh.IR, sh.Bprod, outs_t[i][pw][0],
-            outs_t[i][pw][1], wi, sh.cand, sh.L, c0=i * ts.T)
-        pval = torch.where(scored, score_ops.poisson_sf(O, E), 1.0)
-        obs[i] = (O, ICE, Fold, pval, E, sh.gap_drop, prod)
-        pvals.append(pval)
-        scoreds.append(scored)
-    keep, m, _ = score_ops.global_bh_keep(
-        pvals, scoreds, sig, count_sum=lambda c: tiles.psum(c, mesh))
-    parts, prods = [], [None] * mesh.size
-    for k, i in enumerate(mesh.local_tiles):
-        *sheets, prods[i] = obs.pop(i)
-        _cnt, d, x = score_ops.compact_mask(keep[k])
-        h = _to_host((d, x) + tuple(_gather_flat_shared(a, d, x)
-                                    for a in sheets))
-        parts.append((i * ts.T, [h]))
-    d, x, O, ICE, Fold, p, E, gap = tiles.merge_rowmajor(parts, mesh)[0]
-    return _bhfdr_to_host((len(d), d, x, O, ICE, Fold, p, E, _to_host(m),
-                           gap), tiles.TiledSheet(prods, mesh), sig,
-                          exact=exact)
+    with span('hicpeaks.score'):
+        for i in mesh.local_tiles:
+            sh = ts.tiles[i]
+            E, O, ICE, Fold, scored, prod = score_ops.expected_observed(
+                sh.raw, sh.cband, sh.IR, sh.Bprod, outs_t[i][pw][0],
+                outs_t[i][pw][1], wi, sh.cand, sh.L, c0=i * ts.T)
+            pval = torch.where(scored, score_ops.poisson_sf(O, E), 1.0)
+            obs[i] = (O, ICE, Fold, pval, E, sh.gap_drop, prod)
+            pvals.append(pval)
+            scoreds.append(scored)
+        keep, m, _ = score_ops.global_bh_keep(
+            pvals, scoreds, sig, count_sum=lambda c: tiles.psum(c, mesh))
+        parts, prods = [], [None] * mesh.size
+        for k, i in enumerate(mesh.local_tiles):
+            *sheets, prods[i] = obs.pop(i)
+            _cnt, d, x = score_ops.compact_mask(keep[k])
+            h = _to_host((d, x) + tuple(_gather_flat_shared(a, d, x)
+                                        for a in sheets))
+            parts.append((i * ts.T, [h]))
+        d, x, O, ICE, Fold, p, E, gap = tiles.merge_rowmajor(parts, mesh)[0]
+        m_h = _to_host(m)
+    return _bhfdr_to_host((len(d), d, x, O, ICE, Fold, p, E, m_h, gap),
+                          tiles.TiledSheet(prods, mesh), sig, exact=exact)
 
 
 def _mesh_hiccups_scored(bands, cfg, plan, p_list, pairs, total, route,
@@ -831,8 +869,9 @@ def _mesh_hiccups_scored(bands, cfg, plan, p_list, pairs, total, route,
         if sh is None:
             sh, outs = _gathered(ts, outs_t, route)
         if route.batched:
-            res[b] = _score_dense(sh, outs[p][t], outs[p][t + 1],
-                                  cfg.siglevel, w, chunked=True)
+            with span('hicpeaks.dense_fallback'):
+                res[b] = _score_dense(sh, outs[p][t], outs[p][t + 1],
+                                      cfg.siglevel, w, chunked=True)
         else:
             res[b] = _score_one(sh, outs[p][t], outs[p][t + 1], w,
                                 cfg.siglevel, route, chunked=True,
@@ -852,62 +891,17 @@ def _gather_prod(prod, pixels):
                       device=stacked.device)
     xi = torch.tensor([x for x, _ in pixels], dtype=torch.int64,
                       device=stacked.device)
-    return stacked[i, di, xi].cpu().numpy()
+    vals = stacked[i, di, xi]
+    with span(SYNC):
+        return vals.cpu().numpy()
 
 
-def hiccups_chrom(bands: ChromBands, cfg: HiccupsConfig, mesh=None,
-                  scan_backend='auto', bh_backend='auto', check=False,
-                  ir_backend='host', *, device=None):
-    """Two-background multi-parameter caller (reference callers.py:44-362)
-    on one ``device`` (default the card; JAX's parameters in its order,
-    then the keyword ``device``).  Returns {(x_bp, y_bp): (cen_x, cen_y,
-    radius, O, FoldK, pK, qK, FoldY, pY, qY)} in bp, the table of
-    ``hicpeaks_tpu.core.engine.hiccups_chrom`` with the same
-    ``scan_backend``, ``bh_backend`` and ``check`` (:func:`resolve_route`).
-
-    ``check=True`` is the port's form of JAX's checkify: it raises
-    FloatingPointError on a NaN in the sheets, in pass B's captures or in
-    the scorer's E, O, ICE, Fold and p (and q), and IndexError on a
-    compacted pixel outside the band.  checkify instrumented every float
-    operation (NaN production, division by zero) and every gather; the
-    port checks the named tensors at stage boundaries and the compacted
-    indices, not each operation, and no division by zero that yields a
-    finite result.
-
-    On a CUDA device the bands must be float32 (the kernels take float32
-    sheets and raise otherwise); on the CPU float64 bands compute what the
-    JAX engine computes under x64.
-
-    ``mesh`` (a ``parallel.mesh.TileMesh``; anything else is a TypeError)
-    runs the chromosome on the mesh's column tiles, on ``mesh.devices``
-    (``device`` is then not read), through the host gate as JAX's mesh
-    route does.  JAX's mesh route sets no lambda-chunk edge suspect aside
-    (``engine.py:757,1051``), which on the card moved a bench-shape q
-    7.6e-6 off the float64 oracle; the port's tiles keep exact mode, so
-    the mesh table is the single-device table.  ``ir_backend='device'``
-    derives IR from the tiles (``parallel.tiles.ir_sharded``) instead of
-    the host's; it has no effect without a mesh, as in JAX."""
-    check_mesh(mesh)
-    if mesh is None:
-        device = resolve_device(device)
-    res = bands.res
-    pw, ww = tuple(cfg.pw), tuple(cfg.ww)
-    plan = tuple(poolplan.hiccups_pool_plan(pw, ww, cfg.maxww))
-    p_list = tuple(sorted(set(pw)))
-    total = bands.candidate_total(min(ww), cfg.maxapart // res)
-    pairs = list(zip(pw, ww))
-    max_count = getattr(bands, 'max_count', None)
-    if max_count is None:
-        max_count = float(bands.raw.max())
-    route = resolve_route(scan_backend, bh_backend, check, total, max_count,
-                          mesh)
-    if mesh is None:
-        results = _hiccups_scored(bands, cfg, plan, p_list, pairs, total,
-                                  route, device)
-    else:
-        results = _mesh_hiccups_scored(bands, cfg, plan, p_list, pairs,
-                                       total, route, mesh, ir_backend)
-
+def _merge_pairs(results, pairs, cfg, res):
+    """The per-pair (rK, rY) host dicts merged into one table {(x_bp,
+    y_bp): (x_bp, y_bp, 0, first, O, FoldK, pK, qK, FoldY, pY, qY)}: the
+    donut pixels kept by the lower-left background or by its postcheck,
+    through the fold gates, a later pair replacing an entry only with
+    lower q-values in both backgrounds."""
     pixel_table = {}
     for pair_idx, (pi, wi) in enumerate(pairs):
         rK, rY = results[pair_idx]
@@ -945,20 +939,79 @@ def hiccups_chrom(bands: ChromBands, cfg: HiccupsConfig, mesh=None,
                 elif (donut[-1] < pixel_table[bpkey][7]) and \
                         (ll[-1] < pixel_table[bpkey][10]):
                     pixel_table[bpkey] = bpkey + (0,) + donut + ll[2:]
+    return pixel_table
 
-    Donuts = {(k[0] // res, k[1] // res): pixel_table[k][3:8]
-              for k in pixel_table}
-    LL = {(k[0] // res, k[1] // res): pixel_table[k][8:] for k in pixel_table}
-    peak_list = local_clustering(Donuts, LL, res,
-                                 min_count=cfg.min_marginal_peaks,
-                                 r=2 * res, sumq=cfg.sumq,
-                                 onlysummit=cfg.only_anchors)
-    final_table = {}
-    for pixel, cen, radius in peak_list:
-        key = (pixel[0] * res, pixel[1] * res)
-        final_table[key] = (cen[0] * res, cen[1] * res, radius * res) + \
-            pixel_table[key][4:]
-    return final_table
+
+def hiccups_chrom(bands: ChromBands, cfg: HiccupsConfig, mesh=None,
+                  scan_backend='auto', bh_backend='auto', check=False,
+                  ir_backend='host', *, device=None):
+    """Two-background multi-parameter caller (reference callers.py:44-362)
+    on one ``device`` (default the card; JAX's parameters in its order,
+    then the keyword ``device``).  Returns {(x_bp, y_bp): (cen_x, cen_y,
+    radius, O, FoldK, pK, qK, FoldY, pY, qY)} in bp, the table of
+    ``hicpeaks_tpu.core.engine.hiccups_chrom`` with the same
+    ``scan_backend``, ``bh_backend`` and ``check`` (:func:`resolve_route`).
+
+    ``check=True`` is the port's form of JAX's checkify: it raises
+    FloatingPointError on a NaN in the sheets, in pass B's captures or in
+    the scorer's E, O, ICE, Fold and p (and q), and IndexError on a
+    compacted pixel outside the band.  checkify instrumented every float
+    operation (NaN production, division by zero) and every gather; the
+    port checks the named tensors at stage boundaries and the compacted
+    indices, not each operation, and no division by zero that yields a
+    finite result.
+
+    On a CUDA device the bands must be float32 (the kernels take float32
+    sheets and raise otherwise); on the CPU float64 bands compute what the
+    JAX engine computes under x64.
+
+    ``mesh`` (a ``parallel.mesh.TileMesh``; anything else is a TypeError)
+    runs the chromosome on the mesh's column tiles, on ``mesh.devices``
+    (``device`` is then not read), through the host gate as JAX's mesh
+    route does.  JAX's mesh route sets no lambda-chunk edge suspect aside
+    (``engine.py:757,1051``), which on the card moved a bench-shape q
+    7.6e-6 off the float64 oracle; the port's tiles keep exact mode, so
+    the mesh table is the single-device table.  ``ir_backend='device'``
+    derives IR from the tiles (``parallel.tiles.ir_sharded``) instead of
+    the host's; it has no effect without a mesh, as in JAX."""
+    with span('hicpeaks.call'):
+        check_mesh(mesh)
+        if mesh is None:
+            device = resolve_device(device)
+        res = bands.res
+        pw, ww = tuple(cfg.pw), tuple(cfg.ww)
+        plan = tuple(poolplan.hiccups_pool_plan(pw, ww, cfg.maxww))
+        p_list = tuple(sorted(set(pw)))
+        total = bands.candidate_total(min(ww), cfg.maxapart // res)
+        pairs = list(zip(pw, ww))
+        max_count = getattr(bands, 'max_count', None)
+        if max_count is None:
+            max_count = float(bands.raw.max())
+        route = resolve_route(scan_backend, bh_backend, check, total,
+                              max_count, mesh)
+        if mesh is None:
+            results = _hiccups_scored(bands, cfg, plan, p_list, pairs,
+                                      total, route, device)
+        else:
+            results = _mesh_hiccups_scored(bands, cfg, plan, p_list, pairs,
+                                           total, route, mesh, ir_backend)
+
+        with span('hicpeaks.merge'):
+            pixel_table = _merge_pairs(results, pairs, cfg, res)
+            Donuts = {(k[0] // res, k[1] // res): pixel_table[k][3:8]
+                      for k in pixel_table}
+            LL = {(k[0] // res, k[1] // res): pixel_table[k][8:]
+                  for k in pixel_table}
+        peak_list = local_clustering(Donuts, LL, res,
+                                     min_count=cfg.min_marginal_peaks,
+                                     r=2 * res, sumq=cfg.sumq,
+                                     onlysummit=cfg.only_anchors)
+        final_table = {}
+        for pixel, cen, radius in peak_list:
+            key = (pixel[0] * res, pixel[1] * res)
+            final_table[key] = (cen[0] * res, cen[1] * res, radius * res) + \
+                pixel_table[key][4:]
+        return final_table
 
 
 def bhfdr_chrom(bands: ChromBands, cfg: BHFDRConfig, mesh=None,
@@ -974,51 +1027,58 @@ def bhfdr_chrom(bands: ChromBands, cfg: BHFDRConfig, mesh=None,
     exact, as JAX calls its scorer without the mesh
     (``engine.py:1422-1425``): the mesh table equals the single-device
     one."""
-    check_mesh(mesh)
-    if mesh is None:
-        device = resolve_device(device)
-    res = bands.res
-    plan = tuple(poolplan.bhfdr_pool_plan(cfg.pw, cfg.ww, cfg.maxww))
-    total = bands.candidate_total(cfg.ww, cfg.maxapart // res)
-    route = resolve_route(scan_backend, bh_backend, check, total, mesh=mesh)
-    t_left = poolplan.left_threshold(total)
+    with span('hicpeaks.call'):
+        check_mesh(mesh)
+        if mesh is None:
+            device = resolve_device(device)
+        res = bands.res
+        plan = tuple(poolplan.bhfdr_pool_plan(cfg.pw, cfg.ww, cfg.maxww))
+        total = bands.candidate_total(cfg.ww, cfg.maxapart // res)
+        route = resolve_route(scan_backend, bh_backend, check, total,
+                              mesh=mesh)
+        t_left = poolplan.left_threshold(total)
 
-    def replay(c):
-        return poolplan.emulate_freeze_bhfdr(plan, c, total)
+        def replay(c):
+            return poolplan.emulate_freeze_bhfdr(plan, c, total)
 
-    if mesh is None:
-        sh, outs, decision = _scan_front(
-            _staged_operands(bands, device), bands, plan, (cfg.pw,),
-            _BHFDR_THR, cfg.ww, cfg.maxapart // res, cfg.ww, route, replay,
-            lambda c: poolplan.device_allowed_bhfdr(c, total, t_left, plan))
-    else:
-        ts, outs_t, decision = _mesh_front(
-            bands, mesh, plan, (cfg.pw,), _BHFDR_THR, cfg.ww,
-            cfg.maxapart // res, cfg.ww, route, replay, ir_backend)
-    ctx = _exact_ctx(bands, plan, decision.allowed, _BHFDR_THR)
-    exact = ctx and (ctx, cfg.pw, 'K')
-    if mesh is not None and route.batched:
-        r = _bhfdr_tiles(ts, outs_t, cfg.pw, int(cfg.ww), cfg.siglevel,
-                         exact)
-    else:
-        if mesh is not None:
-            sh, outs = _gathered(ts, outs_t, route)
-        KS, KE, _, _ = outs[cfg.pw]
-        r = _score_one(sh, KS, KE, int(cfg.ww), cfg.siglevel, route,
-                       chunked=False, exact=exact)
+        if mesh is None:
+            sh, outs, decision = _scan_front(
+                _staged_operands(bands, device), bands, plan, (cfg.pw,),
+                _BHFDR_THR, cfg.ww, cfg.maxapart // res, cfg.ww, route,
+                replay, lambda c: poolplan.device_allowed_bhfdr(
+                    c, total, t_left, plan))
+        else:
+            ts, outs_t, decision = _mesh_front(
+                bands, mesh, plan, (cfg.pw,), _BHFDR_THR, cfg.ww,
+                cfg.maxapart // res, cfg.ww, route, replay, ir_backend)
+        ctx = _exact_ctx(bands, plan, decision.allowed, _BHFDR_THR)
+        exact = ctx and (ctx, cfg.pw, 'K')
+        if mesh is not None and route.batched:
+            r = _bhfdr_tiles(ts, outs_t, cfg.pw, int(cfg.ww), cfg.siglevel,
+                             exact)
+        else:
+            if mesh is not None:
+                sh, outs = _gathered(ts, outs_t, route)
+            KS, KE, _, _ = outs[cfg.pw]
+            r = _score_one(sh, KS, KE, int(cfg.ww), cfg.siglevel, route,
+                           chunked=False, exact=exact)
 
-    # insertion order is output order: Donuts follows the row-major
-    # compaction, and the clustering and the bedpe writer iterate it
-    Donuts = {(int(x), int(y)): (float(o), float(f), float(p), float(q))
-              for x, y, o, f, p, q in zip(r['x'], r['y'], r['O'], r['Fold'],
-                                          r['p'], r['q'])}
-    pixel_list = local_clustering(Donuts, None, res,
-                                  min_count=cfg.min_marginal_peaks,
-                                  r=2 * res, onlysummit=cfg.only_anchors)
-    pixel_table = {}
-    for pixel, cen, radius in pixel_list:
-        donut = Donuts[pixel]
-        if donut[1] > 2:   # post-clustering fold gate, callers.py:587
-            pixel_table[(pixel[0] * res, pixel[1] * res)] = \
-                (cen[0] * res, cen[1] * res, radius * res) + donut
-    return pixel_table
+        with span('hicpeaks.merge'):
+            # insertion order is output order: Donuts follows the row-major
+            # compaction, and the clustering and the bedpe writer iterate it
+            Donuts = {(int(x), int(y)): (float(o), float(f), float(p),
+                                         float(q))
+                      for x, y, o, f, p, q in zip(r['x'], r['y'], r['O'],
+                                                  r['Fold'], r['p'], r['q'])}
+        pixel_list = local_clustering(Donuts, None, res,
+                                      min_count=cfg.min_marginal_peaks,
+                                      r=2 * res, onlysummit=cfg.only_anchors)
+        with span('hicpeaks.merge'):
+            pixel_table = {}
+            for pixel, cen, radius in pixel_list:
+                donut = Donuts[pixel]
+                if donut[1] > 2:   # post-clustering fold gate,
+                                   # callers.py:587
+                    pixel_table[(pixel[0] * res, pixel[1] * res)] = \
+                        (cen[0] * res, cen[1] * res, radius * res) + donut
+        return pixel_table

@@ -33,6 +33,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..core.spans import span
+
 
 def _round_up(x, m):
     return (x + m - 1) // m * m
@@ -228,9 +230,11 @@ def bands_from_cooler(clr, chrom, maxapart, maxww, ww_min, dtype=np.float32,
     lo, hi = clr.bin_range(chrom)
     L = hi - lo
     num = maxapart // res + maxww + 1
-    b1, b2, ct = clr.pixels_for_chrom(chrom)
-    w = clr.weights(chrom, weight_name)
-    return build_bands(b1, b2, ct, w, L, num, ww_min, res,
-                       chrom=chrom.lstrip('chr'), dtype=dtype,
-                       lane_pad=lane_pad, keep_sparse=keep_sparse,
-                       sublane_pad=max(8, row_bucket))
+    with span('hicpeaks.band.read'):
+        b1, b2, ct = clr.pixels_for_chrom(chrom)
+        w = clr.weights(chrom, weight_name)
+    with span('hicpeaks.band.build'):
+        return build_bands(b1, b2, ct, w, L, num, ww_min, res,
+                           chrom=chrom.lstrip('chr'), dtype=dtype,
+                           lane_pad=lane_pad, keep_sparse=keep_sparse,
+                           sublane_pad=max(8, row_bucket))

@@ -46,6 +46,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..core.spans import span
+
 
 def _psum_host_int(x, bands):
     """Exact sum of an integer host array across the processes that
@@ -248,23 +250,24 @@ def exact_stats(ctx: ExactCtx, d_idx, x_idx, p, kind):
     ``kind`` under peak-width set ``p`` — the reference's own float64
     values (callers.py:526-531: E = (IR * bSV/bEV) * B1 * B2, Fold = O/E;
     cM[x, y] as the ICE signal)."""
-    d_idx = np.asarray(d_idx, np.int64)
-    x_idx = np.asarray(x_idx, np.int64)
-    rs = ctx.ring_sums(d_idx, x_idx)
-    entries = freeze_entries(ctx, rs, p)
-    bsv, bev = background_sums(ctx, rs, entries, kind)
+    with span('hicpeaks.exact_stats'):
+        d_idx = np.asarray(d_idx, np.int64)
+        x_idx = np.asarray(x_idx, np.int64)
+        rs = ctx.ring_sums(d_idx, x_idx)
+        entries = freeze_entries(ctx, rs, p)
+        bsv, bev = background_sums(ctx, rs, entries, kind)
 
-    bands = ctx.bands
-    O = ctx.raw_at(d_idx, x_idx)
-    w64 = bands.w064 if getattr(bands, 'w064', None) is not None \
-        else np.asarray(bands.w0, np.float64)
-    ice = O * (w64[x_idx] * w64[x_idx + d_idx])
-    b64 = ctx.bias64()
-    with np.errstate(invalid='ignore', divide='ignore'):
-        ratio = np.where(bev != 0, bsv / np.where(bev != 0, bev, 1.0), 0.0)
-        E = (ctx.ir64()[d_idx] * ratio) * b64[x_idx] * b64[x_idx + d_idx]
-        fold = np.where(E > 0, O / np.where(E > 0, E, 1.0), 0.0)
-    return O, E, fold, ice
+        bands = ctx.bands
+        O = ctx.raw_at(d_idx, x_idx)
+        w64 = bands.w064 if getattr(bands, 'w064', None) is not None \
+            else np.asarray(bands.w0, np.float64)
+        ice = O * (w64[x_idx] * w64[x_idx + d_idx])
+        b64 = ctx.bias64()
+        with np.errstate(invalid='ignore', divide='ignore'):
+            ratio = np.where(bev != 0, bsv / np.where(bev != 0, bev, 1.0), 0.0)
+            E = (ctx.ir64()[d_idx] * ratio) * b64[x_idx] * b64[x_idx + d_idx]
+            fold = np.where(E > 0, O / np.where(E > 0, E, 1.0), 0.0)
+        return O, E, fold, ice
 
 
 def chunk_ids64(E, scored):

@@ -14,7 +14,8 @@ What the port leaves out, and why: the TPU transfer encodings
 (``_unpack_rows``), the split histogram (``chunk_hist_split`` cut MXU work;
 an atomic histogram's cost does not grow with the column count) and the
 fixed-cap compaction tiers (``torch.nonzero`` sizes the output from the
-count).
+count).  Each read the host blocks on (an op sized by the data, a Python
+number of a tensor) is a ``hicpeaks.sync`` span (``core/spans``).
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ import math
 
 import torch
 
+from ..core.spans import SYNC, span
 from .cuda_hist import chunk_hist
 
 
@@ -282,7 +284,9 @@ def global_bh_keep(pval, valid, sig, count_sum=None):
     while True:
         k_next = count(sigf * k / msafe * infl)
         iterations += 1
-        if bool(k_next == k):
+        with span(SYNC):
+            done = bool(k_next == k)
+        if done:
             break
         k = k_next
     keep = below(sigf * k / msafe * infl)
@@ -302,16 +306,20 @@ def segmented_bh(pvals, seg, valid):
     min runs over the tie.  One suffix min per segment (at most 128
     lambda chunks)."""
     p = pvals.reshape(-1)
-    flat = torch.nonzero(valid.reshape(-1)).reshape(-1)
+    with span(SYNC):
+        flat = torch.nonzero(valid.reshape(-1)).reshape(-1)
     pv = p[flat]
     sv = seg.reshape(-1)[flat]
     o = torch.argsort(pv, stable=True)
     o = o[torch.argsort(sv[o], stable=True)]
     ps = pv[o]
     q = torch.empty_like(ps)
-    _, sizes = torch.unique_consecutive(sv[o], return_counts=True)
+    with span(SYNC):
+        _, sizes = torch.unique_consecutive(sv[o], return_counts=True)
+    with span(SYNC):
+        sizes = sizes.tolist()
     start = 0
-    for m in sizes.tolist():
+    for m in sizes:
         rank = torch.arange(1, m + 1, device=p.device).to(ps.dtype)
         qc = torch.clamp(ps[start:start + m] * m / rank, max=1.0)
         q[start:start + m] = torch.flip(
@@ -329,9 +337,12 @@ def compact_mask_batched(keep):
     largest count; entries past a background's count point at the last
     cell, as in ``hicpeaks_tpu.ops.score.compact_mask_batched``."""
     B, R, C = keep.shape
-    nz = torch.nonzero(keep.reshape(B, -1))          # row-major (b, flat)
-    cnt = torch.bincount(nz[:, 0], minlength=B).to(torch.int32)
-    K = int(cnt.max())
+    with span(SYNC):
+        nz = torch.nonzero(keep.reshape(B, -1))      # row-major (b, flat)
+    with span(SYNC):   # on a card, bincount reads its input's min and max
+        cnt = torch.bincount(nz[:, 0], minlength=B).to(torch.int32)
+    with span(SYNC):
+        K = int(cnt.max())
     pos = torch.full((B, K), R * C - 1, dtype=torch.int64,
                      device=keep.device)
     start = torch.cumsum(cnt, 0) - cnt

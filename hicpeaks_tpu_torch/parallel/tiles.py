@@ -28,6 +28,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..core.spans import SYNC, span
 from ..ops import cuda_hist, cuda_scan
 from ..ops import score as score_ops
 from .launch import device_transport
@@ -67,7 +68,10 @@ def _wire(t, transport):
     gloo host tensors; bools travel as uint8."""
     if t.dtype == torch.bool:
         t = t.to(torch.uint8)
-    return t.contiguous() if transport == 'nccl' else t.cpu().contiguous()
+    if transport == 'nccl':
+        return t.contiguous()
+    with span(SYNC):
+        return t.cpu().contiguous()
 
 
 def _exchange(tiles, H, mesh, left, right):
@@ -143,7 +147,8 @@ def _all_reduce(t):
     if transport == 'nccl':
         dist.all_reduce(t, group=group)
         return t
-    h = t.cpu().clone()
+    with span(SYNC):
+        h = t.cpu().clone()
     dist.all_reduce(h)
     return h.to(t.device)
 
@@ -328,7 +333,9 @@ class TiledSheet:
             t = self.tiles[i]
             di = torch.as_tensor(d[at], device=t.device)
             xi = torch.as_tensor(x[at] - i * self.T, device=t.device)
-            found.append((at, t[lead][di, xi].double().cpu().numpy()))
+            vals = t[lead][di, xi].double()
+            with span(SYNC):
+                found.append((at, vals.cpu().numpy()))
         out = np.zeros(d.shape[0], np.float64)
         for got in _all_gather_host(found, self.mesh):
             for at, vals in got:
