@@ -24,11 +24,14 @@ It exits non-zero on any failure, and without a CUDA card.  Phases:
    relative stat difference < 1e-8; then JAX's call form,
    ``hiccups_chrom(bands, cfg)`` with no ``device``, which must launch
    the same kernels as often and return the same table (the default
-   device is the card);
+   device is the card); the float64 completion's two kernels
+   (``window_stats64``, ``finish64``) on the inputs of one more such call,
+   each bit-equal to its twin (the host completion), timed beside its
+   bound;
 4. chr1 scale at the CLI default span (L=24,900 at 10 kb, 10 Mb): the
    main path's kernel launches in its first call and the steady
-   per-chromosome wall of the second, and the kernel checks of phase 2
-   on that chromosome's sheets;
+   per-chromosome wall of the second, and the kernel checks of phases 2
+   and 3 on that chromosome's sheets and main-path inputs;
 5. pyBHFDR at the bench shape and the pyBHFDR CLI defaults (pw=2, ww=5,
    maxww=10, 2 Mb): the scan kernels against their twins on the pyBHFDR
    plan and gate, the global-BH iteration count, ``bhfdr_chrom`` on the
@@ -170,6 +173,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 RES = 10000
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet, at the 700 W limit
 F32_OPS_PER_S = 67e12
+F64_OPS_PER_S = 34e12       # outside the tensor cores
 PW, WW, MAXWW = (2,), (5,), 10
 # phase 7's synthesis depth: chr1 (seed 42) then plans o_cap 16384
 DEEP_DEPTH = 640.0
@@ -196,6 +200,12 @@ KERNELS = (
      'hicpeaks_tpu/ops/pallas_scan.py:222'),
     ('chunk_hist', 'hicpeaks_tpu_torch/csrc/chunk_hist.cu',
      'hicpeaks_tpu/ops/pallas_hist.py:46'),
+    # the float64 completion of the fused pyHICCUPS scorer, which JAX runs
+    # on the host (ops/hostexact.exact_stats, ops/score.host_chunk_qtab64)
+    ('window_stats64', 'hicpeaks_tpu_torch/csrc/complete64.cu',
+     'hicpeaks_tpu/ops/hostexact.py:250'),
+    ('finish64', 'hicpeaks_tpu_torch/csrc/complete64.cu',
+     'hicpeaks_tpu/ops/score.py:906'),
 )
 
 
@@ -283,12 +293,13 @@ def kernel_time(fn, reps):
     return dict(ms=batched, single_ms=single, batched_ms=batched)
 
 
-def bound_ms(bytes_, ops):
+def bound_ms(bytes_, ops, ops_per_s=F32_OPS_PER_S):
     """The least time the card could take for ``bytes_`` moved once and
-    ``ops`` float32 operations: the larger of the two times at the H100
-    SXM's published peaks (3.35 TB/s HBM3, 67 TFLOP/s f32 outside the
-    tensor cores), and which one it is."""
-    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    ``ops`` float32 operations (float64 ones with ``ops_per_s`` =
+    F64_OPS_PER_S): the larger of the two times at the H100 SXM's
+    published peaks (3.35 TB/s HBM3, 67 TFLOP/s f32 and 34 TFLOP/s f64
+    outside the tensor cores), and which one it is."""
+    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by='bytes' if t_bytes >= t_ops else 'operations',
                 bytes=int(bytes_), ops=int(ops))
@@ -470,6 +481,124 @@ def kernel_checks(bands, cfg, device, reps, caller='hiccups', keep=None):
             f'{r["plain_ms"]:.3f} ms{lib}; '
             f'bound {r["bound_ms"]:.4f} ms ({r["bound_by"]}: {r["bytes"]} B, '
             f'{r["ops"]} ops), {r["bound_ms"] / r["ms"]:.1%} of it')
+    return out
+
+
+def completion_checks(call, reps, tag):
+    """The float64 completion's kernels (``ops/cuda_complete``:
+    ``window_stats64``, then ``finish64``) on the inputs the main path's
+    own ``call`` gave them, each against its twin bit for bit (the
+    statistics and cells, then the kept flags, the counts and the audit,
+    and the kept rows).  Raises on any disagreement; returns {name:
+    {max_abs_err, ms, plain_ms (the twin's host time), library_ms (None:
+    no library call does this), bound_ms, bound_by, bytes, ops}}."""
+    import torch
+    from hicpeaks_tpu_torch.ops import cuda_complete as cc
+    real = {n: getattr(cc, n) for n in ('window_stats64', 'finish64')}
+    seen = {}
+
+    def keeping(n):
+        def run(*a):
+            seen[n] = a
+            return real[n](*a)
+        run.launches = 0    # the wrapper counts as it stands in for it
+        return run
+    for n in real:
+        setattr(cc, n, keeping(n))
+    try:
+        call()
+    finally:
+        for n, fn in real.items():
+            setattr(cc, n, fn)
+    if set(seen) != set(real):
+        raise AssertionError(f'{tag}: the main path called {sorted(seen)} '
+                             'of the completion\'s kernels')
+
+    def host(ts):
+        return [t.cpu() for t in ts]
+
+    def host_ms(fn):
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    def same(a, b):
+        return torch.equal(a.cpu().view(torch.int64) if a.is_floating_point()
+                           else a.cpu(),
+                           b.view(torch.int64) if b.is_floating_point()
+                           else b)
+
+    raw, ctx, bgs, kept, sus, O_s, S, C = seen['window_stats64']
+    hist, _, _, kept_f, sus_f, ptab, sig = seen['finish64']
+    ws_args = (raw, ctx, bgs, kept, sus, O_s, S, C)
+    ws_twin = (ctx, bgs, host(kept), host(sus), O_s.cpu(), S, C)
+    stats, cell = real['window_stats64'](*ws_args)
+    w_stats, w_cell = cc.window_stats64_twin(*ws_twin)
+    if not (same(stats, w_stats) and same(cell, w_cell)):
+        raise AssertionError(f'{tag}: window_stats64 differs from its twin')
+    fin_args = (hist, cell, stats, kept_f, sus_f, ptab, sig)
+    fin_twin = (hist.cpu(), w_cell, w_stats, host(kept_f), host(sus_f),
+                ptab.cpu(), sig)
+    rows, fin, head = real['finish64'](*fin_args)
+    w_rows, w_fin, w_head = cc.finish64_twin(*fin_twin)
+    if not (same(fin, w_fin) and same(head, w_head)
+            and same(rows[fin], w_rows[w_fin])):
+        raise AssertionError(f'{tag}: finish64 differs from its twin')
+
+    # bytes moved once: the union of the live pixels' windows of the band
+    # (float32), their (d, x) in and the statistics and cell out; float64
+    # operations: a multiply pair and an add pair a cell of the
+    # background's ring family (non-cross cells for 'K', 4 w^2; the
+    # lower-left quadrant for 'Y', w^2)
+    w = ctx.maxw
+    num_p, Lp = raw.shape
+    B, N = cell.shape
+    K = kept[1].shape[1]
+    live = torch.zeros((B, N), dtype=torch.bool, device=raw.device)
+    for off, (cnt, d, x) in ((0, kept), (K, sus)):
+        live[:, off:off + d.shape[1]] = (
+            torch.arange(d.shape[1], device=raw.device)[None]
+            < cnt.to(raw.device)[:, None])
+    d_all = torch.cat([kept[1], sus[1]], 1)[live].long()
+    x_all = torch.cat([kept[2], sus[2]], 1)[live].long()
+    a, b = torch.meshgrid(torch.arange(-w, w + 1, device=raw.device),
+                          torch.arange(-w, w + 1, device=raw.device),
+                          indexing='ij')
+    dp = d_all[:, None] + (b - a).reshape(-1)[None]
+    tp = x_all[:, None] + a.reshape(-1)[None]
+    inb = (dp >= 0) & (dp < num_p) & (tp >= 0) & (tp < Lp)
+    window = torch.unique(dp[inb] * Lp + tp[inb]).numel()
+    n_live = [int(v) for v in live.sum(1)]
+    family = sum(n * (w * w if kind == 'Y' else 4 * w * w)
+                 for n, (_, kind) in zip(n_live, bgs))
+    out = {'window_stats64': dict(
+        max_abs_err=0.0,
+        **kernel_time(lambda: real['window_stats64'](*ws_args), reps),
+        plain_ms=host_ms(lambda: cc.window_stats64_twin(*ws_twin)),
+        library_ms=None,
+        **bound_ms(bytes_=4 * window + 44 * sum(n_live),
+                   ops=4 * family, ops_per_s=F64_OPS_PER_S))}
+    # the histogram and the p table in, the cells in, the kept flags out,
+    # and each kept row's statistics in and its 7 float64 out
+    n_kept = int(head[0].sum())
+    out['finish64'] = dict(
+        max_abs_err=0.0,
+        **kernel_time(lambda: real['finish64'](*fin_args), reps),
+        plain_ms=host_ms(lambda: cc.finish64_twin(*fin_twin)),
+        library_ms=None,
+        **bound_ms(bytes_=hist.numel() * 4 + ptab.numel() * 8
+                   + cell.numel() * 5 + n_kept * (24 + 56),
+                   ops=0))
+    for name, r in out.items():
+        log(f'{tag} {name}: kernel == twin on the main path\'s inputs '
+            f'({sum(n_live)} pixel slots, {n_kept} kept, S = {S}, C = {C}); '
+            f'kernel {r["ms"]:.4f} ms ({timing(r)}), twin on the host '
+            f'{r["plain_ms"]:.3f} ms; bound {r["bound_ms"]:.4f} ms '
+            f'({r["bound_by"]}: {r["bytes"]} B, {r["ops"]} ops), '
+            f'{r["bound_ms"] / r["ms"]:.1%} of it')
     return out
 
 
@@ -1713,7 +1842,9 @@ def mesh_tiles(device, counters, bench, chr1_h, chr1_b):
     from hicpeaks_tpu_torch.parallel.mesh import make_tile_mesh
     mesh = make_tile_mesh(devices=[device] * MESH_TILES)
     out = {}
-    want = dict(scan_pass_a=MESH_TILES, scan_pass_b=MESH_TILES)
+    # the tiles complete on the host
+    want = dict(scan_pass_a=MESH_TILES, scan_pass_b=MESH_TILES,
+                window_stats64=0, finish64=0)
 
     def held(launches, hist):
         expect = dict(want, chunk_hist=hist)
@@ -1805,10 +1936,11 @@ def mesh_worker(mode, uri, out_path, device):
     from hicpeaks_tpu_torch.core import engine
     from hicpeaks_tpu_torch.core.config import BHFDRConfig, HiccupsConfig
     from hicpeaks_tpu_torch.io.coolerlite import CoolerLite
-    from hicpeaks_tpu_torch.ops import cuda_hist, cuda_scan
+    from hicpeaks_tpu_torch.ops import cuda_complete, cuda_hist, cuda_scan
     from hicpeaks_tpu_torch.parallel import launch, multihost
     counters = (cuda_scan.scan_pass_a, cuda_scan.scan_pass_b,
-                cuda_hist.chunk_hist)
+                cuda_hist.chunk_hist, cuda_complete.window_stats64,
+                cuda_complete.finish64)
     if not launch.maybe_initialize_distributed():
         raise RuntimeError('mesh worker: HICPEAKS_* variables not set')
     _, rank = launch.world()
@@ -2029,11 +2161,15 @@ def mesh_processes(device, tmp, files, counters):
 # fused route's launches of each per chromosome call (PERF.md section 6)
 TRACED_KERNELS = {'scan_pass_a': 'scan_pass_a_kernel',
                   'scan_pass_b': 'scan_pass_b_kernel',
-                  'chunk_hist': 'chunk_hist_kernel'}
+                  'chunk_hist': 'chunk_hist_kernel',
+                  'window_stats64': 'complete64_kernel',
+                  'finish64': 'finish64_kernel'}
 FUSED_LAUNCHES = {'pyHICCUPS': dict(scan_pass_a=1, scan_pass_b=1,
-                                    chunk_hist=1),
+                                    chunk_hist=1, window_stats64=1,
+                                    finish64=1),
                   'pyBHFDR': dict(scan_pass_a=1, scan_pass_b=1,
-                                  chunk_hist=0)}
+                                  chunk_hist=0, window_stats64=0,
+                                  finish64=0)}
 DEVICE_CATS = ('kernel', 'gpu_memcpy', 'gpu_memset')
 
 
@@ -2450,7 +2586,7 @@ def main():
     from hicpeaks_tpu_torch.core import engine
     from hicpeaks_tpu_torch.core.config import BHFDRConfig, HiccupsConfig
     from hicpeaks_tpu_torch.kernels import build
-    from hicpeaks_tpu_torch.ops import cuda_hist, cuda_scan
+    from hicpeaks_tpu_torch.ops import cuda_complete, cuda_hist, cuda_scan
 
     device = 'cuda'
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
@@ -2467,7 +2603,8 @@ def main():
         if 'ptxas info' in line and ('Used' in line or 'Compiling' in line):
             log(f'    {line.strip()}')
     counters = (cuda_scan.scan_pass_a, cuda_scan.scan_pass_b,
-                cuda_hist.chunk_hist)
+                cuda_hist.chunk_hist, cuda_complete.window_stats64,
+                cuda_complete.finish64)
     if args.crossing_only or args.pipeline_only:
         if args.crossing_only:
             crossing(device, counters)
@@ -2548,6 +2685,8 @@ def main():
     idle = [n for n, c in bench_launches.items() if c < 1]
     if idle:
         raise AssertionError(f'main path did not launch {idle}')
+    bench.update(completion_checks(
+        lambda: engine.hiccups_chrom(bands, cfg, device=device), 10, '[3]'))
     t0 = time.perf_counter()
     # pyHICCUPS's min(ww) and pyBHFDR's ww are both 5: one set of dense
     # inputs serves phases 3 and 5
@@ -2590,6 +2729,8 @@ def main():
         raise AssertionError(f'main path did not launch {idle}')
     streams_a = {}
     chr1 = kernel_checks(bands, cfg, device, reps=10, keep=streams_a)
+    chr1.update(completion_checks(
+        lambda: engine.hiccups_chrom(bands, cfg, device=device), 10, '[4]'))
 
     # --- 5: pyBHFDR at the bench shape and the pyBHFDR CLI defaults ---
     bands, maxapart = bench_bands, 2_000_000

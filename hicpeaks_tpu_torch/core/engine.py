@@ -23,14 +23,16 @@ in where the gate is computed and in the scorer:
   checks of :func:`_check_finite` and :func:`_check_in_band`.
 
 On the host: the freeze replay, the float64 completion
-(:mod:`.hostcomplete`), the fold gates, the cross-pair merge and the
+(:mod:`.hostcomplete`; the fused pyHICCUPS scorer's completes on the
+device, :mod:`.complete64`), the fold gates, the cross-pair merge and the
 clustering (:mod:`.clustering`).
 
 Under a running ``torch.profiler`` capture each call is a
 ``hicpeaks.call`` span holding its stages' spans (:mod:`.spans`):
 ``hicpeaks.h2d``, ``.sheets``, ``.scan``, ``.replay``, ``.score``,
-``.dense_fallback``, ``.host_complete``, ``.merge``, ``.clustering``, and
-one ``hicpeaks.sync`` around each blocking device-to-host read.
+``.dense_fallback``, ``.complete64``, ``.host_complete``, ``.merge``,
+``.clustering``, and one ``hicpeaks.sync`` around each blocking
+device-to-host read.
 
 With a ``mesh`` (``parallel.mesh.TileMesh``) every route runs on column
 tiles (:mod:`..parallel.tiles`): the sheets are cut into tiles, pass A and
@@ -61,8 +63,9 @@ from ..ops.band import ChromBands
 from ..ops.hostexact import ExactCtx
 from ..parallel import tiles
 from ..parallel.mesh import check_mesh
-from . import poolplan
+from . import complete64, poolplan
 from .clustering import local_clustering
+from .complete64 import complete_on_device
 from .config import BHFDRConfig, HiccupsConfig
 from .hostcomplete import _bhfdr_to_host, _compact_to_host, _dense_to_host
 from .spans import SYNC, span
@@ -579,9 +582,10 @@ def _hiccups_scored(bands: ChromBands, cfg: HiccupsConfig, plan, p_list,
                     pairs, total, route, device):
     """One chromosome through its route, completed to per-pair (rK, rY)
     host dicts: the front, then the batched scorer where the route takes
-    it, and :func:`_score_dense` for each background whose suspect audit
-    fails there; off the batched route, :func:`_score_one` for every
-    background."""
+    it, completed on the device where it holds the whole band
+    (:mod:`.complete64`) and else on the host, and :func:`_score_dense`
+    for each background whose suspect audit fails there; off the batched
+    route, :func:`_score_one` for every background."""
     ww = tuple(cfg.ww)
     t_left = poolplan.left_threshold(total)
     sh, outs, decision = _scan_front(
@@ -607,12 +611,15 @@ def _hiccups_scored(bands: ChromBands, cfg: HiccupsConfig, plan, p_list,
             sh, BSV, BEV, wis_t, cfg.siglevel, route.o_cap,
             exact_mode=ctx is not None, margin=margin,
             s_rows=score_ops.chunk_rows(route.o_cap, cfg.siglevel))
-        fetched, sus = _to_host((out[:8], out[9]))
-        for b, (p, _, kind, _) in enumerate(bgs):
-            res[b] = _compact_to_host(
-                tuple(a[b] for a in fetched), (out[8], b), cfg.siglevel,
-                exact=ctx and (ctx, p, kind),
-                sus=tuple(a[b] for a in sus) if sus else None)
+        if complete64.serves(ctx):
+            res = complete_on_device(sh, out, bgs, ctx, cfg.siglevel)
+        else:
+            fetched, sus = _to_host((out[:8], out[9]))
+            for b, (p, _, kind, _) in enumerate(bgs):
+                res[b] = _compact_to_host(
+                    tuple(a[b] for a in fetched), (out[8], b), cfg.siglevel,
+                    exact=ctx and (ctx, p, kind),
+                    sus=tuple(a[b] for a in sus) if sus else None)
     for b, (p, w, kind, t) in enumerate(bgs):
         if res[b] is not None:
             continue

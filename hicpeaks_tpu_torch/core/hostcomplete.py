@@ -9,7 +9,8 @@ statistics in float64 on the host, as ``hicpeaks_tpu`` does:
 * ``host_chunk_qtab64`` / ``host_chunk_complete`` and
   ``host_bh_complete`` are copies of ``hicpeaks_tpu/ops/score.py:889-958``,
   and ``host_chunk_dense`` / ``host_bh`` of ``:961-1016``, whose module
-  imports JAX;
+  imports JAX; the batched scorer's (S, C) p table is scipy's, made once
+  a shape (:func:`ptab64`);
 * ``_compact_to_host`` is ``hicpeaks_tpu/core/engine.py:928-1036`` for the
   histogram bundles of the pyHICCUPS path (exact and suspect branches)
   and for the segmented-BH bundle, whose device p and q it emits as
@@ -19,6 +20,16 @@ statistics in float64 on the host, as ``hicpeaks_tpu`` does:
 * ``_dense_to_host`` is the host half of the dense scorer
   (``hicpeaks_tpu/core/engine.py:1230-1259``) on the fetched valid pixels.
 
+Which routes complete here: pyBHFDR (its p is a per-pixel ``1 -
+poisson.cdf`` with a continuous E, so no table serves it), the dense
+scorer, checkify's per-background scorer, segmented BH, the tiles of a
+mesh, and the batched pyHICCUPS scorer where :func:`.complete64.serves`
+declines it (bands split across processes).  Elsewhere the batched
+pyHICCUPS scorer completes on the device (:mod:`.complete64`), with the
+same numbers; its CPU twin runs this module's table steps
+(:func:`chunk_qtab`, :func:`move_suspects`, :func:`audit`,
+:func:`lookup`).
+
 The exact branches recompute each pixel's E in float64
 (:mod:`hicpeaks_tpu_torch.ops.hostexact`).  The histogram branch moves lambda-chunk
 edge suspects to their float64 chunk and audits the device's count
@@ -27,6 +38,7 @@ superset's float64 p-values among themselves.
 """
 from __future__ import annotations
 
+import functools
 import logging
 
 import numpy as np
@@ -37,28 +49,81 @@ from .spans import span
 log = logging.getLogger(__name__)
 
 
+def _ptab(S, C):
+    """The (chunk, count) p table of ``S`` chunks and ``C`` counts: the
+    reference's own ``1 - poisson.cdf(count; right_edge)``
+    (callers.py:268-270), kept verbatim so the emitted digits match it,
+    artifacts included."""
+    from scipy.stats import poisson as _poisson
+    rv = np.power(2.0, (np.arange(S, dtype=np.float64) - 1.0)
+                  / 3.0)[:, None]
+    counts = np.arange(C, dtype=np.float64)[None, :]
+    return 1.0 - _poisson.cdf(counts, rv)
+
+
+@functools.lru_cache(maxsize=4)
+def ptab64(S, C):
+    """:func:`_ptab` of the batched scorer, made once a shape and kept
+    (read-only): its S and C follow the count cap ``o_cap``, which takes a
+    handful of values in a process."""
+    ptab = _ptab(S, C)
+    ptab.flags.writeable = False
+    return ptab
+
+
+def chunk_qtab(hist, ptab):
+    """The BH q table of the int64 [S, C] histogram ``hist`` and its p
+    table: per-chunk m and rank_max, then ``min(p * m / rank_max, 1)``
+    (2 where no pixel ranks) and its prefix minimum."""
+    m = hist.sum(axis=1, keepdims=True).astype(np.float64)
+    rank_max = np.cumsum(hist[:, ::-1], axis=1)[:, ::-1].astype(np.float64)
+    qraw = np.where(rank_max > 0,
+                    np.minimum(ptab * m / np.maximum(rank_max, 1.0), 1.0),
+                    2.0)
+    # within a chunk p decreases with the count, so BH's suffix-min is a
+    # prefix-min over ascending counts
+    return np.minimum.accumulate(qraw, axis=1)
+
+
 def host_chunk_qtab64(hist):
     """Exact float64 (chunk, count) BH tables (ptab, qtab) from the integer
-    histogram.  The per-count p is the reference's own ``1 -
-    poisson.cdf(count; right_edge)`` (callers.py:268-270), kept verbatim
-    so the emitted digits match it, artifacts included."""
+    histogram."""
     with span('hicpeaks.qtab64'):
-        from scipy.stats import poisson as _poisson
         hist = np.asarray(hist, np.int64)
-        S, C = hist.shape
-        m = hist.sum(axis=1, keepdims=True).astype(np.float64)
-        rank_max = np.cumsum(hist[:, ::-1], axis=1)[:, ::-1].astype(np.float64)
-        rv = np.power(2.0, (np.arange(S, dtype=np.float64) - 1.0)
-                      / 3.0)[:, None]
-        counts = np.arange(C, dtype=np.float64)[None, :]
-        ptab = 1.0 - _poisson.cdf(counts, rv)
-        qraw = np.where(rank_max > 0,
-                        np.minimum(ptab * m / np.maximum(rank_max, 1.0), 1.0),
-                        2.0)
-        # within a chunk p decreases with the count, so BH's suffix-min is a
-        # prefix-min over ascending counts
-        qtab = np.minimum.accumulate(qraw, axis=1)
-        return ptab, qtab
+        ptab = _ptab(*hist.shape)
+        return ptab, chunk_qtab(hist, ptab)
+
+
+def move_suspects(hist, dev, new):
+    """An int64 copy of the [S, C] histogram ``hist`` with each suspect
+    moved from its device (chunk, count) cell to its float64 one (``dev``
+    and ``new``: (chunks, counts) index pairs; row 0 is the invalid trash
+    row, both ways)."""
+    hist64 = np.array(hist, np.int64)
+    np.add.at(hist64, dev, -1)
+    np.add.at(hist64, new, 1)
+    return hist64
+
+
+def audit(qtab, hist64, new, thr_dev, sig):
+    """The cells of the CORRECTED table that are significant below the
+    device's count thresholds ``thr_dev`` [S] and still hold non-suspect
+    pixels (the suspects sit at ``new``): each could hide a missed peak.
+    Row 0 is the trash row."""
+    hist_nosus = hist64.copy()
+    np.add.at(hist_nosus, new, -1)
+    counts_i = np.arange(qtab.shape[1], dtype=np.int64)[None, :]
+    missed = ((qtab <= sig) & (counts_i < np.asarray(thr_dev)[:, None])
+              & (hist_nosus > 0))
+    missed[0, :] = False
+    return int(missed.sum())
+
+
+def lookup(ptab, qtab, cells, valid):
+    """float64 p and q of the (chunks, counts) ``cells``, 1 where not
+    ``valid``."""
+    return (np.where(valid, ptab[cells], 1.0),
+            np.where(valid, qtab[cells], 1.0))
 
 
 def host_chunk_complete(O_small, cid_small, hist):
@@ -235,8 +300,8 @@ def _compact_to_host(fetched, prod, sig, exact=None, sus=None):
                         q=q64[fin], prod=prod)
 
         ctx, p_set, kind = exact
+        S, C = np.shape(hist)
         hist64 = np.asarray(hist, np.int64)
-        S, C = hist64.shape
         sus_data = None
         if sus is not None:
             ns = int(sus[0])
@@ -246,29 +311,49 @@ def _compact_to_host(fetched, prod, sig, exact=None, sus=None):
             cid_dev = np.clip(np.asarray(sus[3][:ns], np.int64), 0, S - 1)
             O_s = np.asarray(sus[4][:ns], np.int64)
             gap_s = np.asarray(sus[5][:ns], bool)
-            thr_dev = np.asarray(sus[6], np.int64)
             O64s, E64s, fold64s, ice64s = hostexact.exact_stats(
                 ctx, ds, xs, p_set, kind)
             cid64s, valid64s = hostexact.chunk_ids64(E64s, E64s > 0)
-            cid_new = np.where(valid64s, np.clip(cid64s, 0, S - 1), 0)
-            # move each suspect from its device (chunk, count) cell to its
-            # float64 one (row 0 = the invalid trash row, both ways)
-            np.add.at(hist64, (cid_dev, O_s), -1)
-            np.add.at(hist64, (cid_new, O_s), 1)
-            sus_data = (ds, xs, cid_new, O_s, gap_s, O64s, fold64s, ice64s,
-                        valid64s, thr_dev)
+            new = (np.where(valid64s, np.clip(cid64s, 0, S - 1), 0), O_s)
+            hist64 = move_suspects(hist64, (cid_dev, O_s), new)
+            sus_data = (ds, xs, new, gap_s, O64s, fold64s, ice64s, valid64s,
+                        np.asarray(sus[6], np.int64))
         O64, E64, fold64, ice64 = hostexact.exact_stats(
             ctx, d_idx, x_idx, p_set, kind)
         cid64, valid64 = hostexact.chunk_ids64(E64, E64 > 0)
-        ptab, qtab = host_chunk_qtab64(hist64)
+        with span('hicpeaks.qtab64'):
+            ptab = ptab64(S, C)
+            qtab = chunk_qtab(hist64, ptab)
         oc = np.clip(np.floor(O64).astype(np.int64), 0, C - 1)
-        cs = np.clip(cid64, 0, S - 1)
-        p64 = np.where(valid64, ptab[cs, oc], 1.0)
-        q64 = np.where(valid64, qtab[cs, oc], 1.0)
+        p64, q64 = lookup(ptab, qtab, (np.clip(cid64, 0, S - 1), oc), valid64)
         fin = q64 <= sig
         out = dict(x=x_idx[fin], y=x_idx[fin] + d_idx[fin], O=O64[fin],
                    ICE=ice64[fin], Fold=fold64[fin], p=p64[fin], q=q64[fin],
                    prod=prod)
+        if sus_data is None:
+            return out
+        (ds, xs, new, gap_s, O64s, fold64s, ice64s, valid64s,
+         thr_dev) = sus_data
+        # audit the device superset against the corrected table
+        missed = audit(qtab, hist64, new, thr_dev, sig)
+        if missed:
+            log.warning(
+                'suspect-corrected BH table made %d (chunk, count) cells '
+                'significant below the device keep threshold — falling back '
+                'to the dense scorer for this background (f32-chunked; loci '
+                'unaffected)', missed)
+            return None
+        p64s, q64s = lookup(ptab, qtab, new, valid64s)
+        fin_s = (q64s <= sig) & ~gap_s
+        return dict(
+            x=np.concatenate([out['x'], xs[fin_s]]),
+            y=np.concatenate([out['y'], xs[fin_s] + ds[fin_s]]),
+            O=np.concatenate([out['O'], O64s[fin_s]]),
+            ICE=np.concatenate([out['ICE'], ice64s[fin_s]]),
+            Fold=np.concatenate([out['Fold'], fold64s[fin_s]]),
+            p=np.concatenate([out['p'], p64s[fin_s]]),
+            q=np.concatenate([out['q'], q64s[fin_s]]),
+            prod=prod)
         if sus_data is None:
             return out
         (ds, xs, cid_new, O_s, gap_s, O64s, fold64s, ice64s, valid64s,

@@ -10,7 +10,9 @@ edit rebuilds it.  A failed build raises: nothing falls back to the plain
 PyTorch twins.
 
 Floating-point contraction is off (``--fmad=false``) because the pass-B
-kernel replays the ring scan's add chains bit for bit.
+kernel replays the ring scan's add chains bit for bit, and the float64
+completion kernels (``complete64.cu``) the host's float64 sums and
+products.
 
 The host library (``csrc/host/*.cpp``: ``bandbuild.cpp``, the band
 scatter and the float64 ring sums, and ``fastload.cpp``, the threaded TXT
@@ -48,6 +50,7 @@ _vp = ctypes.c_void_p
 _i32 = ctypes.c_int
 _i64 = ctypes.c_longlong
 _f32 = ctypes.c_float
+_f64 = ctypes.c_double
 
 #: C entry points: name -> argtypes (each returns the cudaError_t of its
 #: launch as an int).
@@ -61,6 +64,17 @@ SIGNATURES = {
                        _i32, _i32, _f32, _vp, _vp],
     # oc, cid, n, B, S, C, hist, blocks, stream
     'hp_chunk_hist': [_vp, _vp, _i64, _i32, _i32, _i32, _vp, _i32, _vp],
+    # raw, num_p, Lp, L, ww_min, maxw, vec64, plan, n_e, B, cnt_k, d_k, x_k,
+    # K, cnt_s, d_s, x_s, O_s, Ks, thr, edges, n_edges, S, C, stats, cell,
+    # stream
+    'hp_complete64': [_vp, _i64, _i64, _i64, _i64, _i32, _vp, _vp, _i32,
+                      _i32, _vp, _vp, _vp, _i32, _vp, _vp, _vp, _vp, _i32,
+                      _f64, _vp, _i32, _i32, _i32, _vp, _vp, _vp],
+    # hist, cell, stats, B, S, C, cnt_k, d_k, x_k, K, cnt_s, d_s, x_s, Ks,
+    # cid_s, O_s, gap_s, thr, ptab, sig, h, qtab, rows, fin, head, stream
+    'hp_finish64': [_vp, _vp, _vp, _i32, _i32, _i32, _vp, _vp, _vp, _i32,
+                    _vp, _vp, _vp, _i32, _vp, _vp, _vp, _vp, _vp, _f64, _vp,
+                    _vp, _vp, _vp, _vp, _vp],
 }
 
 

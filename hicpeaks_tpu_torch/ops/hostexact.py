@@ -39,8 +39,18 @@ global-BH ranks / lambda-chunk histograms count the f32 ordering (ties
 resolve within ~1e-4-relative neighborhoods; the BH suffix-min absorbs
 them).
 
-Cost: O(n_compacted * (2*maxww+1)^2) numpy gathers — ~4e6 reads at the
-default config's caps, microseconds-scale against the device round trip.
+Where it runs: the host completions of :mod:`..core.hostcomplete`
+(pyBHFDR, checkify, the tiles of a mesh, and the batched pyHICCUPS scorer
+where the device does not hold the whole band) call :func:`exact_stats`.
+The batched pyHICCUPS scorer on one device completes on the device
+instead: the kernel of ``ops/cuda_complete`` repeats the native walk
+(``csrc/host/bandbuild.cpp`` ring_sums), the freeze replay and the
+statistics bit for bit, and on the CPU runs this module as its twin.
+
+Cost: O(n_compacted * (2*maxww+1)^2) cell visits and numpy passes over
+the plan.  For the pyHICCUPS chr1 call at 10 kb with a 10 Mb band it was
+14.5 ms of host time a call (PERF.md), the card idle meanwhile: the reason
+the batched scorer completes on the device.
 """
 from __future__ import annotations
 

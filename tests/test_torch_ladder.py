@@ -146,7 +146,8 @@ def test_counts_above_the_histogram_cap(clr, bh, dtype):
 def _fail_audit(monkeypatch, module, target):
     """Make ``module``'s suspect audit fail for the background ``target`` =
     (p, kind): its device keep thresholds raised far above every count, so
-    significant cells hold pixels below them."""
+    significant cells hold pixels below them; in the host completion and,
+    for the port, in the device one."""
     real = module._compact_to_host
 
     def audited(*a, **k):
@@ -155,6 +156,18 @@ def _fail_audit(monkeypatch, module, target):
             k['sus'] = tuple(sus[:6]) + (np.asarray(sus[6]) + 10 ** 6,)
         return real(*a, **k)
     monkeypatch.setattr(module, '_compact_to_host', audited)
+    if not hasattr(module, 'complete_on_device'):
+        return
+    real_device = module.complete_on_device
+
+    def audited_device(sh, out, bgs, ctx, sig):
+        thr = out[9][6].clone()
+        for b, (p, _, kind, _) in enumerate(bgs):
+            if (p, kind) == target:
+                thr[b] += 10 ** 6
+        sus = tuple(out[9][:6]) + (thr,)
+        return real_device(sh, out[:9] + (sus,) + out[10:], bgs, ctx, sig)
+    monkeypatch.setattr(module, 'complete_on_device', audited_device)
 
 
 @pytest.mark.parametrize('dtype', DTYPES)

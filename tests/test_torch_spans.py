@@ -37,15 +37,19 @@ FRONT = {'hicpeaks.call', 'hicpeaks.h2d', 'hicpeaks.sheets', 'hicpeaks.scan',
          'hicpeaks.merge', 'hicpeaks.clustering', spans.SYNC}
 EXACT = {'hicpeaks.exact_stats'}
 QTAB = {'hicpeaks.qtab64'}
+# the batched pyHICCUPS scorer completes on the device (its CPU twin, the
+# host's float64 statistics, inside the span)
+ON_DEVICE = FRONT - {'hicpeaks.host_complete'} | {'hicpeaks.complete64'}
 MESH = 'mesh'    # the route's call on a mesh of two CPU tiles
 
 # route: (caller, the call's keywords, the stages it passes)
 ROUTES = {
-    'hiccups-fused': ('hiccups', {}, FRONT | EXACT | QTAB),
-    'hiccups-host-gate': ('hiccups', {'gate': 1}, FRONT | EXACT | QTAB),
+    'hiccups-fused': ('hiccups', {}, ON_DEVICE | EXACT),
+    'hiccups-host-gate': ('hiccups', {'gate': 1}, ON_DEVICE | EXACT),
     'hiccups-dense': ('hiccups', {'bh_backend': 'host'}, FRONT | QTAB),
     'hiccups-fallback': ('hiccups', {'fail_audit': (2, 'Y')},
-                         FRONT | EXACT | QTAB | {'hicpeaks.dense_fallback'}),
+                         FRONT | ON_DEVICE | EXACT | QTAB
+                         | {'hicpeaks.dense_fallback'}),
     'hiccups-checkify': ('hiccups', {'check': True}, FRONT | EXACT | QTAB),
     'hiccups-mesh': ('hiccups', {MESH: 2},
                      FRONT - {'hicpeaks.h2d'} | EXACT | QTAB),
@@ -104,7 +108,8 @@ def _counted_reads(counter):
 
 def _fail_audit(monkeypatch, target):
     """Make the suspect audit of the background ``target`` = (p, kind)
-    fail: its device keep thresholds raised far above every count."""
+    fail: its device keep thresholds raised far above every count, in the
+    host completion and in the device one."""
     real = engine._compact_to_host
 
     def audited(*a, **k):
@@ -113,6 +118,16 @@ def _fail_audit(monkeypatch, target):
             k['sus'] = tuple(sus[:6]) + (np.asarray(sus[6]) + 10 ** 6,)
         return real(*a, **k)
     monkeypatch.setattr(engine, '_compact_to_host', audited)
+    real_device = engine.complete_on_device
+
+    def audited_device(sh, out, bgs, ctx, sig):
+        thr = out[9][6].clone()
+        for b, (p, _, kind, _) in enumerate(bgs):
+            if (p, kind) == target:
+                thr[b] += 10 ** 6
+        sus = tuple(out[9][:6]) + (thr,)
+        return real_device(sh, out[:9] + (sus,) + out[10:], bgs, ctx, sig)
+    monkeypatch.setattr(engine, 'complete_on_device', audited_device)
 
 
 def _call(clr, caller, kw, monkeypatch):
@@ -169,10 +184,11 @@ def test_route_stages_nest_in_one_call(clr, route, monkeypatch, tmp_path):
 
 @pytest.mark.parametrize('stage', ['hicpeaks.exact_stats', 'hicpeaks.qtab64'])
 def test_completion_parts_nest_in_the_completion(clr, stage, tmp_path):
-    """The float64 completion's two parts run inside its span."""
+    """The float64 host completion's two parts run inside its span (on
+    checkify's route, which completes on the host)."""
     bands = _bands(clr)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
-        engine.hiccups_chrom(bands, HCFG, device='cpu')
+        engine.hiccups_chrom(bands, HCFG, device='cpu', check=True)
     marks = _marks(prof, tmp_path)
     outer = [(e['ts'], e['ts'] + e['dur']) for e in marks
              if e['name'] == 'hicpeaks.host_complete']
