@@ -1,6 +1,7 @@
 """Greedy peak clustering and anchor detection (controller-side).
 
-The port's copy of ``hicpeaks_tpu/core/clustering.py``, unchanged.
+The port's copy of ``hicpeaks_tpu/core/clustering.py``, unchanged but for
+its spans (``core/spans``).
 
 Semantic re-implementation of the reference post-processing
 (``find_anchors``/``_cluster_core``/``local_clustering``,
@@ -166,8 +167,11 @@ def local_clustering(Donuts, LL, res, onlysummit=False, min_count=3, r=20000, su
         x = np.asarray([k[0] for k in keys])
         y = np.asarray([k[1] for k in keys])
 
-        x_anchors = find_anchors(x, min_count=min_count, min_dis=r, res=res)
-        y_anchors = find_anchors(y, min_count=min_count, min_dis=r, res=res)
+        with span('hicpeaks.anchors'):
+            x_anchors = find_anchors(x, min_count=min_count, min_dis=r,
+                                     res=res)
+            y_anchors = find_anchors(y, min_count=min_count, min_dis=r,
+                                     res=res)
         r = max(r // res, 1)
         visited = set()
         lookup = set(zip(x.tolist(), y.tolist()))
@@ -187,16 +191,19 @@ def local_clustering(Donuts, LL, res, onlysummit=False, min_count=3, r=20000, su
         leftovers.sort(reverse=True)
         _grow_clusters(leftovers, r, visited, final_list)
 
-        x_summits = set(a[0] for a in x_anchors)
-        y_summits = set(a[0] for a in y_anchors)
-        for i, j in zip(x.tolist(), y.tolist()):
-            if (i, j) in visited:
-                continue
-            if LL is not None:
-                qpass = Donuts[(i, j)][-1] + LL[(i, j)][-1] <= sumq
-            else:
-                qpass = Donuts[(i, j)][-1] <= sumq / 2
-            if qpass and ((not onlysummit) or (i in x_summits)
-                          or (j in y_summits)):
-                final_list.append(((i, j), (i, j), 0))
+        # the singleton pass, which ``onlysummit`` gates on the anchors'
+        # summits: the second part of the anchor stage
+        with span('hicpeaks.anchors'):
+            x_summits = set(a[0] for a in x_anchors)
+            y_summits = set(a[0] for a in y_anchors)
+            for i, j in zip(x.tolist(), y.tolist()):
+                if (i, j) in visited:
+                    continue
+                if LL is not None:
+                    qpass = Donuts[(i, j)][-1] + LL[(i, j)][-1] <= sumq
+                else:
+                    qpass = Donuts[(i, j)][-1] <= sumq / 2
+                if qpass and ((not onlysummit) or (i in x_summits)
+                              or (j in y_summits)):
+                    final_list.append(((i, j), (i, j), 0))
         return final_list

@@ -911,41 +911,45 @@ def _merge_pairs(results, pairs, cfg, res):
     lower q-values in both backgrounds."""
     pixel_table = {}
     for pair_idx, (pi, wi) in enumerate(pairs):
-        rK, rY = results[pair_idx]
+        with span('hicpeaks.pair_merge'):
+            rK, rY = results[pair_idx]
 
-        first = rK['O'] if cfg.use_raw else rK['ICE']
-        preDonuts = {(int(x), int(y)): (fi, o, f, p, q)
-                     for x, y, fi, o, f, p, q in zip(
-                         rK['x'], rK['y'], first, rK['O'], rK['Fold'],
-                         rK['p'], rK['q'])}
-        preLL = {(int(x), int(y)): (i, o, f, p, q)
-                 for x, y, i, o, f, p, q in zip(
-                     rY['x'], rY['y'], rY['ICE'], rY['O'], rY['Fold'],
-                     rY['p'], rY['q'])}
+            first = rK['O'] if cfg.use_raw else rK['ICE']
+            preDonuts = {(int(x), int(y)): (fi, o, f, p, q)
+                         for x, y, fi, o, f, p, q in zip(
+                             rK['x'], rK['y'], first, rK['O'], rK['Fold'],
+                             rK['p'], rK['q'])}
+            preLL = {(int(x), int(y)): (i, o, f, p, q)
+                     for x, y, i, o, f, p, q in zip(
+                         rY['x'], rY['y'], rY['ICE'], rY['O'], rY['Fold'],
+                         rY['p'], rY['q'])}
 
-        commonPos = set(preDonuts) & set(preLL)
-        postcheck = set(preDonuts) - set(preLL)
-        if postcheck:
-            # cEM here is the Y background's expected matrix (the reference
-            # reuses the loop variable, callers.py:329-331); it stays on the
-            # device and only the postcheck entries are gathered
-            pc = list(postcheck)
-            vals = _gather_prod(rY['prod'], pc)
-            for (ci, cj), v in zip(pc, vals):
-                if v == 0:
-                    commonPos.add((ci, cj))
+            commonPos = set(preDonuts) & set(preLL)
+            postcheck = set(preDonuts) - set(preLL)
+            if postcheck:
+                # cEM here is the Y background's expected matrix (the
+                # reference reuses the loop variable, callers.py:329-331);
+                # it stays on the device and only the postcheck entries
+                # are gathered
+                pc = list(postcheck)
+                vals = _gather_prod(rY['prod'], pc)
+                for (ci, cj), v in zip(pc, vals):
+                    if v == 0:
+                        commonPos.add((ci, cj))
 
-        for key in commonPos:
-            donut = preDonuts[key]
-            ll = preLL.get(key, donut)
-            bpkey = (key[0] * res, key[1] * res)
-            if (donut[2] > cfg.double_fold) and (ll[2] > cfg.double_fold) and \
-                    ((donut[2] > cfg.single_fold) or (ll[2] > cfg.single_fold)):
-                if bpkey not in pixel_table:
-                    pixel_table[bpkey] = bpkey + (0,) + donut + ll[2:]
-                elif (donut[-1] < pixel_table[bpkey][7]) and \
-                        (ll[-1] < pixel_table[bpkey][10]):
-                    pixel_table[bpkey] = bpkey + (0,) + donut + ll[2:]
+            for key in commonPos:
+                donut = preDonuts[key]
+                ll = preLL.get(key, donut)
+                bpkey = (key[0] * res, key[1] * res)
+                if (donut[2] > cfg.double_fold) and \
+                        (ll[2] > cfg.double_fold) and \
+                        ((donut[2] > cfg.single_fold) or
+                         (ll[2] > cfg.single_fold)):
+                    if bpkey not in pixel_table:
+                        pixel_table[bpkey] = bpkey + (0,) + donut + ll[2:]
+                    elif (donut[-1] < pixel_table[bpkey][7]) and \
+                            (ll[-1] < pixel_table[bpkey][10]):
+                        pixel_table[bpkey] = bpkey + (0,) + donut + ll[2:]
     return pixel_table
 
 

@@ -358,8 +358,9 @@ def _card_inputs(pw, ww):
     bgs = [(p, k) for k in ('K', 'Y') for p in pw]
     B = len(bgs)
     num_p, L = bands.raw.shape[0], bands.L
-    kept = _pixels(rng, B, 20000, [20000, 19000, 0, 7][:B], num_p, L)
-    sus = _pixels(rng, B, 300, [300, 1, 250, 0][:B], num_p, L)
+    kept = _pixels(rng, B, 20000, [20000, 19000, 0, 7, 15000, 3][:B],
+                   num_p, L)
+    sus = _pixels(rng, B, 300, [300, 1, 250, 0, 120, 300][:B], num_p, L)
     S, C = 40, 1025
     O_s = np.clip(bands.raw[sus[1], sus[2]], 0, C - 1).astype(np.int32)
     cid_s = rng.integers(0, S, (B, 300)).astype(np.int32)
@@ -367,12 +368,14 @@ def _card_inputs(pw, ww):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('pw,ww', [((2,), (5,)), ((1, 2), (3, 5))])
+@pytest.mark.parametrize('pw,ww', [((2,), (5,)), ((1, 2), (3, 5)),
+                                   ((1, 2, 4), (3, 5, 7))])
 def test_kernels_equal_twins_on_a_chr1_sized_band(device, pw, ww):
     """window_stats64's O, E, Fold, ICE and cells, then finish64's rows,
     kept flags, counts and audit, equal their twins' (the host's native
     walk and numpy; the host completion's table steps) bit for bit, dead slots
-    included."""
+    included: at B = 2, 4 and 6 backgrounds, the last the upstream
+    QuickStart's three pairs (windows 3, 5 and 7)."""
     ctx, bgs, kept, sus, O_s, cid_s, S, C = _card_inputs(pw, ww)
     assert cuda_complete.walks_natively(ctx)
     raw = torch.from_numpy(ctx.bands.raw)

@@ -83,6 +83,27 @@ def test_hiccups_chrom_matches_jax_and_oracle(clr, oracle_tables, pw, ww,
     _assert_tables_match(got, oracle_tables[(pw, ww, maxww)], rtol=1e-8)
 
 
+@pytest.mark.parametrize('only_anchors', [False, True])
+def test_quickstart_three_pairs_match_jax(clr, only_anchors):
+    """The upstream QuickStart's pyHICCUPS (README.rst:198-203: pw 1 2 4,
+    ww 3 5 7, only anchors) and the same pairs with the gate off: six
+    backgrounds, the cross-pair merge and the anchor gate, held to the JAX
+    engine as the cases above are, in the benchmark's float32 bands."""
+    cfg = HiccupsConfig(pw=(1, 2, 4), ww=(3, 5, 7), maxww=10, siglevel=0.05,
+                        sumq=0.01, maxapart=2000000, min_marginal_peaks=2,
+                        min_local_reads=16, only_anchors=only_anchors)
+
+    def bands():
+        return bands_from_cooler(clr, '21', cfg.maxapart, cfg.maxww, 3,
+                                 dtype=np.float32)
+
+    want = jengine.hiccups_chrom(bands(), cfg)
+    got = tengine.hiccups_chrom(bands(), cfg, device='cpu')
+    assert len(want) > 0
+    assert list(got) == list(want)
+    _assert_tables_match(got, want, rtol=1e-12)
+
+
 @pytest.fixture(scope='module')
 def deep_clr(tmp_path_factory):
     """The same synthesis at a depth whose largest count plans the

@@ -34,8 +34,11 @@ BCFG = BHFDRConfig(pw=1, ww=3, maxww=8, maxapart=2_000_000)
 # every stage of a one-device call on the fused route
 FRONT = {'hicpeaks.call', 'hicpeaks.h2d', 'hicpeaks.sheets', 'hicpeaks.scan',
          'hicpeaks.replay', 'hicpeaks.score', 'hicpeaks.host_complete',
-         'hicpeaks.merge', 'hicpeaks.clustering', spans.SYNC}
+         'hicpeaks.merge', 'hicpeaks.clustering', 'hicpeaks.anchors',
+         spans.SYNC}
 EXACT = {'hicpeaks.exact_stats'}
+# pyHICCUPS merges its (pw, ww) pairs one by one
+PAIRS = {'hicpeaks.pair_merge'}
 QTAB = {'hicpeaks.qtab64'}
 # the batched pyHICCUPS scorer completes on the device (its CPU twin, the
 # host's float64 statistics, inside the span)
@@ -44,15 +47,17 @@ MESH = 'mesh'    # the route's call on a mesh of two CPU tiles
 
 # route: (caller, the call's keywords, the stages it passes)
 ROUTES = {
-    'hiccups-fused': ('hiccups', {}, ON_DEVICE | EXACT),
-    'hiccups-host-gate': ('hiccups', {'gate': 1}, ON_DEVICE | EXACT),
-    'hiccups-dense': ('hiccups', {'bh_backend': 'host'}, FRONT | QTAB),
+    'hiccups-fused': ('hiccups', {}, ON_DEVICE | EXACT | PAIRS),
+    'hiccups-host-gate': ('hiccups', {'gate': 1}, ON_DEVICE | EXACT | PAIRS),
+    'hiccups-dense': ('hiccups', {'bh_backend': 'host'},
+                      FRONT | QTAB | PAIRS),
     'hiccups-fallback': ('hiccups', {'fail_audit': (2, 'Y')},
-                         FRONT | ON_DEVICE | EXACT | QTAB
+                         FRONT | ON_DEVICE | EXACT | QTAB | PAIRS
                          | {'hicpeaks.dense_fallback'}),
-    'hiccups-checkify': ('hiccups', {'check': True}, FRONT | EXACT | QTAB),
+    'hiccups-checkify': ('hiccups', {'check': True},
+                         FRONT | EXACT | QTAB | PAIRS),
     'hiccups-mesh': ('hiccups', {MESH: 2},
-                     FRONT - {'hicpeaks.h2d'} | EXACT | QTAB),
+                     FRONT - {'hicpeaks.h2d'} | EXACT | QTAB | PAIRS),
     'bhfdr-fused': ('bhfdr', {}, FRONT | EXACT),
     'bhfdr-host-gate': ('bhfdr', {'gate': 1}, FRONT | EXACT),
     'bhfdr-dense': ('bhfdr', {'bh_backend': 'host'}, FRONT),
