@@ -27,11 +27,13 @@ It exits non-zero on any failure, and without a CUDA card.  Phases:
    device is the card); the float64 completion's two kernels
    (``window_stats64``, ``finish64``) on the inputs of one more such call,
    each bit-equal to its twin (the host completion), timed beside its
-   bound;
+   bound, and so the batched scorer's fused kernels (``score_observe``,
+   ``score_keep``, ``score_gather``) against their twin, the eager chain;
 4. chr1 scale at the CLI default span (L=24,900 at 10 kb, 10 Mb): the
    main path's kernel launches in its first call and the steady
    per-chromosome wall of the second, and the kernel checks of phases 2
-   and 3 on that chromosome's sheets and main-path inputs;
+   and 3 on that chromosome's sheets and main-path inputs, the scorer's
+   kernels also at the upstream QuickStart's three pairs (B = 6);
 5. pyBHFDR at the bench shape and the pyBHFDR CLI defaults (pw=2, ww=5,
    maxww=10, 2 Mb): the scan kernels against their twins on the pyBHFDR
    plan and gate, the global-BH iteration count, ``bhfdr_chrom`` on the
@@ -141,7 +143,14 @@ It exits non-zero on any failure, and without a CUDA card.  Phases:
    copy's traced ms and bytes, how long it overlapped the previous
    chromosome's kernels, and the consumer's wait from its call's start
    (the ``Chrom:<label>`` mark) to its first kernel; each call's peak
-   device memory; one ``staging`` JSON line.
+   device memory; one ``staging`` JSON line;
+14. the fused scorer's kernels' launches a chromosome call on every route,
+   from the kernel records: once on the batched pyHICCUPS scorer on one
+   device (bench, chr1, deep data, ``validate``, the CLI's bands, ``api``
+   traced and staged, the three resolutions of 10b), ``score_gather``
+   once more a pair whose postcheck has a pixel (``score_prod`` counts
+   those), never on pyBHFDR, the dense and segmented scorers,
+   ``check=True``, the tiles or APA.
 
     python3 chip_smoke.py --crossing-only
 
@@ -206,7 +215,25 @@ KERNELS = (
      'hicpeaks_tpu/ops/hostexact.py:250'),
     ('finish64', 'hicpeaks_tpu_torch/csrc/complete64.cu',
      'hicpeaks_tpu/ops/score.py:906'),
+    # the batched pyHICCUPS scorer's dense float32 stages, which JAX leaves
+    # to XLA's fusion (ops/score.py expected_observed, lambda_chunks,
+    # chunk_bh_keep_batched, lambda_suspects)
+    ('score_observe', 'hicpeaks_tpu_torch/csrc/score_fused.cu',
+     'hicpeaks_tpu/ops/score.py:141'),
+    ('score_keep', 'hicpeaks_tpu_torch/csrc/score_fused.cu',
+     'hicpeaks_tpu/ops/score.py:585'),
+    # the compacted pixels' values, where JAX gathers its dense sheets
+    ('score_gather', 'hicpeaks_tpu_torch/csrc/score_fused.cu',
+     'hicpeaks_tpu/core/engine.py:440'),
 )
+# launch counters that are not kernels of their own: ``score_prod``
+# counts the postcheck's launches of score_gather (one a pair whose
+# postcheck has a pixel), which score_gather's count holds too
+COUNTED = (('score_prod', 'hicpeaks_tpu_torch/csrc/score_fused.cu',
+            'hicpeaks_tpu/core/engine.py:440'),)
+# counters a route may leave at 0 where it launches every kernel: the
+# postcheck's gathers, 0 where no pair's postcheck has a pixel
+POSTCHECK_ONLY = ('score_prod',)
 
 
 def log(msg):
@@ -602,6 +629,105 @@ def completion_checks(call, reps, tag):
     return out
 
 
+def score_checks(call, reps, tag):
+    """The batched pyHICCUPS scorer's fused kernels (``ops/cuda_score``:
+    ``score_observe``, ``score_keep``, then ``score_gather`` on the two
+    compactions) on the arguments the main path's own ``call`` gave the
+    scorer, each against its twin (the eager chain, on the card) bit for
+    bit, timed beside its bound.  Raises on any disagreement; returns
+    {name: {max_abs_err, ms, single_ms, batched_ms, plain_ms (the twin's
+    CUDA-event time), library_ms (None), bound_ms, bound_by, bytes,
+    ops}}."""
+    import torch
+    from hicpeaks_tpu_torch.core import engine
+    from hicpeaks_tpu_torch.ops import cuda_score as cs
+    from hicpeaks_tpu_torch.ops import score
+    seen = []
+    real = engine._compact_batched
+
+    def keeping(*a, **kw):
+        seen.append((a, kw))
+        return real(*a, **kw)
+    engine._compact_batched = keeping
+    try:
+        call()
+    finally:
+        engine._compact_batched = real
+    if len(seen) != 1:
+        raise AssertionError(f'{tag}: the main path scored {len(seen)} '
+                             'times in the batched scorer')
+    (sh, SV, EV, wis, sig, o_cap), kw = seen[0][0][:6], seen[0][1]
+    S, C, margin = kw['s_rows'], o_cap + 1, kw['margin']
+    B, (num_p, Lp) = len(SV), sh.raw.shape
+    n = num_p * Lp
+
+    def same(got, want):
+        return len(got) == len(want) and all(
+            g.dtype == w.dtype and torch.equal(g, w)
+            for g, w in zip(got, want))
+    args = {'score_observe': (sh, SV, EV, wis, margin, S, C)}
+    oc, cid0, flags = got = cs.score_observe(*args['score_observe'])
+    if not same(got, cs.score_observe_twin(*args['score_observe'])):
+        raise AssertionError(f'{tag}: score_observe differs from its twin')
+    hist = score.chunk_hist(oc, cid0, S, C)
+    _, thr2 = score.chunk_thresholds(hist, B, S, sig, engine._BH_SLACK,
+                                     torch.float32)
+    args['score_keep'] = (sh.raw, sh.gap_drop, cid0, flags, thr2, sig, C,
+                          True)
+    masks = cs.score_keep(*args['score_keep'])
+    if not same(masks, cs.score_keep_twin(*args['score_keep'])):
+        raise AssertionError(f'{tag}: score_keep differs from its twin')
+    kept, sus = (score.compact_mask_batched(m)[1:] for m in masks)
+    args['score_gather'] = (sh, SV, EV, wis, kept, sus, C)
+    if not same(cs.score_gather(*args['score_gather']),
+                cs.score_gather_twin(*args['score_gather'])):
+        raise AssertionError(f'{tag}: score_gather differs from its twin')
+    slots = B * (kept[0].shape[1] + sus[0].shape[1])
+    # bytes the inputs need, each moved once: the band, the candidate mask
+    # and IR; the 32-byte sectors of Bprod that hold a candidate, and of
+    # each background's EV (SV) planes that hold a candidate at or beyond
+    # its radius (and EV != 0); out, the shared count and each
+    # background's chunk and flag.  Then the band, the gap filter and each
+    # background's flags in, and the 32-byte sectors of its chunks that
+    # hold a valid pixel (the only ones read), the thresholds, the keep
+    # and suspect masks out; then
+    # each slot's indices and the sheets' and planes' values at it in
+    # (29 B), its outputs out (16 B at most).  Operations: about ten
+    # float32 ones a background and scored pixel (a quotient, three
+    # products, the log and its scaling, the floor, the edge and suspect
+    # tests)
+    def sectors(mask):
+        return 32 * int(mask.reshape(-1, 8).any(1).sum())
+    drow = torch.arange(num_p, device=sh.raw.device)[:, None]
+    read = sectors(sh.cand)
+    for ev, wi in zip(EV, wis):
+        live = sh.cand & (drow >= wi)
+        read += sectors(live) + sectors(live & (ev != 0))
+    scored = int((flags & cs.SCORED).ne(0).sum())
+    chunks = sum(sectors((f & cs.VALID) != 0) for f in flags)
+    work = {'score_observe': (9 * n + 4 * num_p + read + 5 * B * n,
+                              10 * scored),
+            'score_keep': (5 * n + 3 * B * n + chunks + 4 * B * S, 0),
+            'score_gather': (45 * slots, 10 * slots)}
+    out = {}
+    for name, a in args.items():
+        kernel, twin = getattr(cs, name), getattr(cs, f'{name}_twin')
+        out[name] = dict(
+            max_abs_err=0.0,
+            **kernel_time(lambda: kernel(*a), reps),
+            plain_ms=kernel_time(lambda: twin(*a), max(3, reps // 3))['ms'],
+            library_ms=None,
+            **bound_ms(bytes_=work[name][0], ops=work[name][1]))
+    for name, r in out.items():
+        log(f'{tag} {name}: kernel == twin on the main path\'s inputs (B = '
+            f'{B}, {n} pixels, {slots} gathered slots); kernel '
+            f'{r["ms"]:.4f} ms ({timing(r)}), twin (the eager chain) '
+            f'{r["plain_ms"]:.3f} ms; bound {r["bound_ms"]:.4f} ms '
+            f'({r["bound_by"]}: {r["bytes"]} B, {r["ops"]} ops), '
+            f'{r["bound_ms"] / r["ms"]:.1%} of it')
+    return out
+
+
 def dense_inputs(bands, w, bias_vec, d_lo):
     """The float64 oracle's dense inputs for the chromosome (bench.py's
     construction): raw and balanced upper bands, the distance-expected IR
@@ -804,7 +930,8 @@ def deep_data(streams_a, device, counters):
         f'{bands.max_count:.0f}, o_cap {o_cap}): hiccups_chrom in '
         f'{t_main:.2f} s (first call), {len(table)} peaks; kernel launches '
         f'{launches}')
-    idle = [n for n, c in launches.items() if c < 1]
+    idle = [n for n, c in launches.items()
+            if c < 1 and n not in POSTCHECK_ONLY]
     if idle:
         raise AssertionError(f'deep main path did not launch {idle}')
     t0 = time.perf_counter()
@@ -1099,6 +1226,14 @@ def ladder(bench_bands, cfg, bcfg, want_h, want_b, chr1, device, counters):
         idle = [n for n in want if launches[n] < 1]
         if idle:
             raise AssertionError(f'route {tag} did not launch {idle}')
+        # the fused scorer's kernels serve the batched scorer alone, the
+        # gather once more a postcheck
+        fused = int(tag == 'a_hiccups_validate')
+        got = [launches[n] for n in ('score_observe', 'score_keep',
+                                     'score_gather', 'score_prod')]
+        if got != [fused, fused, fused + got[3], got[3] * fused]:
+            raise AssertionError(f'route {tag}: the scorer\'s kernels '
+                                 f'launched {launches}, want {fused} each')
     return runs, crossing_recs
 
 
@@ -1312,7 +1447,8 @@ def cli_check(device, tmp, counters, L=24900, keep=None):
         table, _, launches = run_counted(
             counters, lambda: call(bands, cfg, device=device))
         want = ['scan_pass_a', 'scan_pass_b'] + (
-            ['chunk_hist'] if tool == 'pyHICCUPS' else [])
+            ['chunk_hist', 'score_observe', 'score_keep', 'score_gather']
+            if tool == 'pyHICCUPS' else [])
         idle = [n for n in want if launches[n] < 1]
         if idle:
             raise AssertionError(f'[9b] {tool} in process did not launch '
@@ -1498,6 +1634,9 @@ def apa_genome(device, tmp, counters):
             f'pixel and weight reads and scoring {r["rest_s"]:.2f} s), '
             f'{got[0]} windows of {n_loops} loops, peak device memory '
             f'{r["peak_gib"]:.3f} GiB, kernel launches {r["launches"]}')
+        if any(r['launches'][n] for n in ('score_observe', 'score_keep',
+                                          'score_gather')):
+            raise AssertionError('[10a] APA launched the scorer\'s kernels')
         r['out'] = got
     card, cpu = runs['card'].pop('out'), runs['cpu'].pop('out')
     if card[0] != cpu[0] or not all(same_bits(a, b)
@@ -1586,7 +1725,8 @@ def multires_check(device, tmp, counters):
                                   cfg.ww_min, keep_sparse=False)
         table, t_call, launches = run_counted(
             counters, lambda: engine.hiccups_chrom(bands, cfg, device=device))
-        idle = [n for n, c in launches.items() if c < 1]
+        idle = [n for n, c in launches.items()
+            if c < 1 and n not in POSTCHECK_ONLY]
         if idle:
             raise AssertionError(f'[10b] {res}: hiccups_chrom did not launch '
                                  f'{idle}')
@@ -1842,9 +1982,10 @@ def mesh_tiles(device, counters, bench, chr1_h, chr1_b):
     from hicpeaks_tpu_torch.parallel.mesh import make_tile_mesh
     mesh = make_tile_mesh(devices=[device] * MESH_TILES)
     out = {}
-    # the tiles complete on the host
+    # the tiles complete on the host and score with the eager chain
     want = dict(scan_pass_a=MESH_TILES, scan_pass_b=MESH_TILES,
-                window_stats64=0, finish64=0)
+                window_stats64=0, finish64=0, score_observe=0, score_keep=0,
+                score_gather=0, score_prod=0)
 
     def held(launches, hist):
         expect = dict(want, chunk_hist=hist)
@@ -1936,11 +2077,14 @@ def mesh_worker(mode, uri, out_path, device):
     from hicpeaks_tpu_torch.core import engine
     from hicpeaks_tpu_torch.core.config import BHFDRConfig, HiccupsConfig
     from hicpeaks_tpu_torch.io.coolerlite import CoolerLite
-    from hicpeaks_tpu_torch.ops import cuda_complete, cuda_hist, cuda_scan
+    from hicpeaks_tpu_torch.ops import (cuda_complete, cuda_hist, cuda_scan,
+                                        cuda_score)
     from hicpeaks_tpu_torch.parallel import launch, multihost
     counters = (cuda_scan.scan_pass_a, cuda_scan.scan_pass_b,
                 cuda_hist.chunk_hist, cuda_complete.window_stats64,
-                cuda_complete.finish64)
+                cuda_complete.finish64, cuda_score.score_observe,
+                cuda_score.score_keep, cuda_score.score_gather,
+                cuda_score.score_prod)
     if not launch.maybe_initialize_distributed():
         raise RuntimeError('mesh worker: HICPEAKS_* variables not set')
     _, rank = launch.world()
@@ -2163,14 +2307,69 @@ TRACED_KERNELS = {'scan_pass_a': 'scan_pass_a_kernel',
                   'scan_pass_b': 'scan_pass_b_kernel',
                   'chunk_hist': 'chunk_hist_kernel',
                   'window_stats64': 'complete64_kernel',
-                  'finish64': 'finish64_kernel'}
+                  'finish64': 'finish64_kernel',
+                  'score_observe': 'score_observe_kernel',
+                  'score_keep': 'score_keep_kernel',
+                  'score_gather': 'score_gather_kernel'}
 FUSED_LAUNCHES = {'pyHICCUPS': dict(scan_pass_a=1, scan_pass_b=1,
                                     chunk_hist=1, window_stats64=1,
-                                    finish64=1),
+                                    finish64=1, score_observe=1,
+                                    score_keep=1, score_gather=1,
+                                    score_prod=0),
                   'pyBHFDR': dict(scan_pass_a=1, scan_pass_b=1,
                                   chunk_hist=0, window_stats64=0,
-                                  finish64=0)}
+                                  finish64=0, score_observe=0,
+                                  score_keep=0, score_gather=0,
+                                  score_prod=0)}
+
+
+def fused_launches(tool, launches, calls=1):
+    """The launches of ``calls`` chromosome calls of ``tool`` on the fused
+    route: FUSED_LAUNCHES's, and on pyHICCUPS one score_gather more for
+    each postcheck's gather that ``launches`` counted (score_prod; none on
+    pyBHFDR)."""
+    want = {k: n * calls for k, n in FUSED_LAUNCHES[tool].items()}
+    if tool == 'pyHICCUPS':
+        want['score_prod'] = launches['score_prod']
+        want['score_gather'] += launches['score_prod']
+    return want
 DEVICE_CATS = ('kernel', 'gpu_memcpy', 'gpu_memset')
+# phase 14: the kernel records' launch keys of the routes whose batched
+# pyHICCUPS scorer takes the fused kernels, once a chromosome call (the
+# three resolutions of 10b too, and 13's staged chromosomes, one each)
+FUSED_SCORER_ROUTES = ('launches', 'bench_launches', 'deep_launches',
+                       'a_hiccups_validate_launches',
+                       'pipeline_hiccups_launches', 'trace_hiccups_launches')
+
+
+def score_launches(records):
+    """Phase 14: the fused scorer's kernels launched once a chromosome
+    call on every route of the batched pyHICCUPS scorer on one device and
+    never elsewhere (pyBHFDR, the dense and segmented scorers,
+    ``check=True``, the tiles, the genome's pyBHFDR calls), read from the
+    kernel records' launch counts; the gather once more for each
+    postcheck's gather (``score_prod``, never off those routes)."""
+    by_name = {r['name']: r for r in records}
+    chroms = by_name['scan_pass_a']['staging_hiccups_launches']
+    prods = by_name['score_prod']
+    for name in ('score_observe', 'score_keep', 'score_gather',
+                 'score_prod'):
+        got, want = {}, {}
+        for k, v in by_name[name].items():
+            if not k.endswith('launches'):
+                continue
+            got[k] = v
+            fused = k in FUSED_SCORER_ROUTES or k.startswith('multires_')
+            if fused or k == 'staging_hiccups_launches':
+                calls = 1 if fused else chroms
+                want[k] = {'score_gather': calls + prods[k],
+                           'score_prod': v}.get(name, calls)
+            else:
+                want[k] = [0] * len(v) if isinstance(v, list) else 0
+        if got != want:
+            bad = {k: (got[k], want[k]) for k in got if got[k] != want[k]}
+            raise AssertionError(f'[14] {name} launches (got, want): {bad}')
+        log(f'[14] {name}: launches a call {json.dumps(got)}')
 
 
 def union_ms(spans):
@@ -2254,10 +2453,11 @@ def trace_check(device, tmp, counters, uri, smi, kernel_ms=None):
         traced = {k: len(v) for k, v in r['ours'].items()}
         if r['kernel_events'] < 1:
             raise AssertionError(f'[12] {tool}: no CUDA kernel in the trace')
-        if not traced == launches == FUSED_LAUNCHES[tool]:
+        fused = fused_launches(tool, launches)
+        if traced != {k: launches[k] for k in traced} or launches != fused:
             raise AssertionError(
                 f'[12] {tool}: kernels in the trace {traced}, launch '
-                f'counters {launches}, fused route {FUSED_LAUNCHES[tool]}')
+                f'counters {launches}, fused route {fused}')
         if table != want or jax_launches != launches:
             raise AssertionError(
                 f'[12] {tool}: the traced table (device={device!r}) '
@@ -2413,8 +2613,7 @@ def staging_check(device, tmp, counters, uri, smi, genome_tables):
             engine.stage_chrom_arrays = real_stage
         peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
         staged = real_stage.staged - staged
-        want_launches = {k: n * len(labels)
-                         for k, n in FUSED_LAUNCHES[tool].items()}
+        want_launches = fused_launches(tool, launches, len(labels))
         if staged != len(labels) * staging or list(tables) != labels or \
                 launches != want_launches:
             raise AssertionError(
@@ -2586,7 +2785,8 @@ def main():
     from hicpeaks_tpu_torch.core import engine
     from hicpeaks_tpu_torch.core.config import BHFDRConfig, HiccupsConfig
     from hicpeaks_tpu_torch.kernels import build
-    from hicpeaks_tpu_torch.ops import cuda_complete, cuda_hist, cuda_scan
+    from hicpeaks_tpu_torch.ops import (cuda_complete, cuda_hist, cuda_scan,
+                                        cuda_score)
 
     device = 'cuda'
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
@@ -2604,7 +2804,9 @@ def main():
             log(f'    {line.strip()}')
     counters = (cuda_scan.scan_pass_a, cuda_scan.scan_pass_b,
                 cuda_hist.chunk_hist, cuda_complete.window_stats64,
-                cuda_complete.finish64)
+                cuda_complete.finish64, cuda_score.score_observe,
+                cuda_score.score_keep, cuda_score.score_gather,
+                cuda_score.score_prod)
     if args.crossing_only or args.pipeline_only:
         if args.crossing_only:
             crossing(device, counters)
@@ -2682,10 +2884,13 @@ def main():
         counters, lambda: engine.hiccups_chrom(bands, cfg, device=device))
     log(f'[3] main path: hiccups_chrom in {t_main:.2f} s (first call), '
         f'{len(table)} peaks; kernel launches {bench_launches}')
-    idle = [n for n, c in bench_launches.items() if c < 1]
+    idle = [n for n, c in bench_launches.items()
+            if c < 1 and n not in POSTCHECK_ONLY]
     if idle:
         raise AssertionError(f'main path did not launch {idle}')
     bench.update(completion_checks(
+        lambda: engine.hiccups_chrom(bands, cfg, device=device), 10, '[3]'))
+    bench.update(score_checks(
         lambda: engine.hiccups_chrom(bands, cfg, device=device), 10, '[3]'))
     t0 = time.perf_counter()
     # pyHICCUPS's min(ww) and pyBHFDR's ww are both 5: one set of dense
@@ -2724,13 +2929,22 @@ def main():
         n_cand, '[4] hiccups_chrom')
     chr1_run = (bands, cfg, chr1_table)
     mesh_h = (bands, cfg, n_cand)
-    idle = [n for n, c in launches.items() if c < 1]
+    idle = [n for n, c in launches.items()
+            if c < 1 and n not in POSTCHECK_ONLY]
     if idle:
         raise AssertionError(f'main path did not launch {idle}')
     streams_a = {}
     chr1 = kernel_checks(bands, cfg, device, reps=10, keep=streams_a)
     chr1.update(completion_checks(
         lambda: engine.hiccups_chrom(bands, cfg, device=device), 10, '[4]'))
+    chr1.update(score_checks(
+        lambda: engine.hiccups_chrom(bands, cfg, device=device), 10, '[4]'))
+    # the upstream QuickStart's three pairs: B = 6 backgrounds
+    qcfg = HiccupsConfig(pw=(1, 2, 4), ww=(3, 5, 7), maxww=MAXWW,
+                         maxapart=maxapart)
+    chr1_b6 = score_checks(
+        lambda: engine.hiccups_chrom(bands, qcfg, device=device), 10,
+        '[4] pw 1 2 4, ww 3 5 7:')
 
     # --- 5: pyBHFDR at the bench shape and the pyBHFDR CLI defaults ---
     bands, maxapart = bench_bands, 2_000_000
@@ -2815,10 +3029,10 @@ def main():
     keys = ('max_abs_err', 'ms', 'single_ms', 'batched_ms', 'plain_ms',
             'bound_ms', 'bound_by', 'library_ms')
     records = []
-    for name, source, replaces in KERNELS:
+    for name, source, replaces in KERNELS + COUNTED:
         rec = dict(name=name, route='cuda', source=source, replaces=replaces,
                    launches=launches[name],
-                   **{k: chr1[name][k] for k in keys},
+                   **{k: chr1[name][k] for k in keys if name in chr1},
                    bench_launches=bench_launches[name],
                    bhfdr_launches=b_launches[name],
                    deep_launches=deep_launches[name],
@@ -2830,9 +3044,9 @@ def main():
                        'launches'][name],
                    genome_launches=pipeline['genome']['launches'][name],
                    trace_hiccups_launches=pipeline['trace']['pyHICCUPS'][
-                       'traced'][name],
+                       'launches'][name],
                    trace_bhfdr_launches=pipeline['trace']['pyBHFDR'][
-                       'traced'][name],
+                       'launches'][name],
                    staging_hiccups_launches=pipeline['staging'][
                        'pyHICCUPS']['launches'][name],
                    staging_bhfdr_launches=pipeline['staging']['pyBHFDR'][
@@ -2850,7 +3064,8 @@ def main():
                           g['launches'][name]
                           for g in mesh_out['global']['bhfdr']]})
         for tag, r in (('bench', bench), ('multi_pair', multi),
-                       ('bhfdr', chr1_b), ('bhfdr_bench', bench_b)):
+                       ('bhfdr', chr1_b), ('bhfdr_bench', bench_b),
+                       ('quickstart', chr1_b6)):
             if name in r:
                 rec.update({f'{tag}_{k}': r[name][k] for k in keys})
         if name in crossing_recs:
@@ -2861,6 +3076,8 @@ def main():
             for tag, r in shapes.items():
                 rec.update({f'shape_{tag}_{k}': r[k] for k in keys})
         records.append(rec)
+    # --- 14: the fused scorer's kernels, a call on every route ---
+    score_launches(records)
     log(json.dumps({'kernels': records}))
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -56,7 +56,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..ops import cuda_scan
+from ..ops import cuda_scan, cuda_score
 from ..ops import scan as scan_ops
 from ..ops import score as score_ops
 from ..ops.band import ChromBands
@@ -447,18 +447,27 @@ def _keep_batched(sh, obs, thr2, sig, o_cap, exact_mode, margin,
             gb(Fold, d_idx, x_idx), cid_g), sus_bundle
 
 
-def _compact_batched(sh, BSV, BEV, wis_t, sig, o_cap, exact_mode, margin,
+def _compact_batched(sh, SV, EV, wis, sig, o_cap, exact_mode, margin,
                      s_rows, check=False):
     """All B backgrounds (every (p, w) pair x {K, Y}, or one) scored in
     one batched body: expected values, lambda chunks, histogram BH keep
     mask (one histogram launch for all B), gap filter and compaction.
+    ``SV``, ``EV``: each background's capture planes [num_p, Lp]; ``wis``:
+    its window radius.  Where ``cuda_score.serves``, the dense stages are
+    the fused kernels (:func:`_compact_fused`), else the eager chain.
 
     Returns the 10-slot bundle with a leading [B] axis: (cnt, d, x, O, ICE,
-    Fold, cid, hist [B, S, C], prod [B, num_p, Lp], suspects) with the
-    suspect bundle (cnt, d, x, cid, O, gap, thr) or () without
-    ``exact_mode``."""
+    Fold, cid, hist [B, S, C], prod, suspects) with prod [B, num_p, Lp] or
+    its ``cuda_score.PlaneProd`` handle and the suspect bundle (cnt, d, x,
+    cid, O, gap, thr) or () without ``exact_mode``."""
     with span('hicpeaks.score'):
-        obs = _observe_batched(sh, BSV, BEV, wis_t, check=check)
+        if cuda_score.serves(sh, SV, EV, check):
+            with span('hicpeaks.score_fused'):
+                return _compact_fused(sh, SV, EV, wis, sig, o_cap,
+                                      exact_mode, margin, s_rows)
+        wis_t = torch.tensor(wis, dtype=torch.int32, device=sh.raw.device)
+        obs = _observe_batched(sh, torch.stack(SV), torch.stack(EV), wis_t,
+                               check=check)
         O, cid, valid = obs[1], obs[6], obs[7]
         B, S, C = cid.shape[0], s_rows, o_cap + 1
         oc, cid0 = score_ops.chunk_pack(O, cid, valid, S, C)
@@ -469,6 +478,33 @@ def _compact_batched(sh, BSV, BEV, wis_t, sig, o_cap, exact_mode, margin,
                                     margin, check)
         sus = sus + (thr2.to(torch.int32),) if sus else ()
         return bundle + (hist.reshape(B, S, C), obs[5], sus)
+
+
+def _compact_fused(sh, SV, EV, wis, sig, o_cap, exact_mode, margin, s_rows):
+    """:func:`_compact_batched`'s bundle through the fused kernels
+    (``ops/cuda_score``): one pass for the histogram's inputs and the
+    flags, the histogram and its thresholds as on the eager chain, the
+    keep and suspect masks, their compactions, and the compacted pixels'
+    values recomputed from the planes."""
+    B, S, C = len(SV), s_rows, o_cap + 1
+    oc, cid0, flags = cuda_score.score_observe(sh, SV, EV, wis, margin, S,
+                                               C)
+    hist = score_ops.chunk_hist(oc, cid0, S, C)                 # [B*S, C]
+    _qtab, thr2 = score_ops.chunk_thresholds(hist, B, S, sig, _BH_SLACK,
+                                             sh.raw.dtype)
+    keep, sus = cuda_score.score_keep(sh.raw, sh.gap_drop, cid0, flags,
+                                      thr2, sig, C, exact_mode)
+    del oc, cid0, flags
+    sus_set = score_ops.compact_mask_batched(sus) if exact_mode else None
+    cnt, d_idx, x_idx = score_ops.compact_mask_batched(keep)
+    got = cuda_score.score_gather(sh, SV, EV, wis, (d_idx, x_idx),
+                                  sus_set and sus_set[1:], C, prod=False)
+    sus_bundle = ()
+    if exact_mode:
+        sus_bundle = sus_set + got[4:7] + (thr2.to(torch.int32),)
+    prod = cuda_score.PlaneProd(sh, SV, EV, wis, C)
+    return ((cnt, d_idx, x_idx) + got[:4]
+            + (hist.reshape(B, S, C), prod, sus_bundle))
 
 
 def _score_device_bhfdr_compact(sh, bSV, bEV, sig, wi, check=False):
@@ -559,9 +595,8 @@ def _score_one(sh, bSV, bEV, wi, sig, route, chunked, exact=None):
             out, prod = _score_device_segmented(sh, bSV, bEV, sig, wi,
                                                 route.check)
             return _compact_to_host(_to_host(out), prod, None)
-        wis_t = torch.tensor([wi], dtype=torch.int32, device=sh.raw.device)
         out = _compact_batched(
-            sh, bSV[None], bEV[None], wis_t, sig, route.o_cap,
+            sh, [bSV], [bEV], [wi], sig, route.o_cap,
             exact_mode=False, margin=0.0,
             s_rows=score_ops.chunk_rows(route.o_cap, sig), check=route.check)
         fetched = _to_host(tuple(a[0] for a in out[:8]))
@@ -603,12 +638,10 @@ def _hiccups_scored(bands: ChromBands, cfg: HiccupsConfig, plan, p_list,
            for p, w in pairs]
     res = [None] * (2 * n)
     if route.batched:
-        BSV = torch.stack([outs[p][t] for p, _, _, t in bgs])
-        BEV = torch.stack([outs[p][t + 1] for p, _, _, t in bgs])
-        wis_t = torch.tensor([w for _, w, _, _ in bgs], dtype=torch.int32,
-                             device=sh.raw.device)
         out = _compact_batched(
-            sh, BSV, BEV, wis_t, cfg.siglevel, route.o_cap,
+            sh, [outs[p][t] for p, _, _, t in bgs],
+            [outs[p][t + 1] for p, _, _, t in bgs],
+            [w for _, w, _, _ in bgs], cfg.siglevel, route.o_cap,
             exact_mode=ctx is not None, margin=margin,
             s_rows=score_ops.chunk_rows(route.o_cap, cfg.siglevel))
         if complete64.serves(ctx):
@@ -891,7 +924,7 @@ def _gather_prod(prod, pixels):
     (stacked [B, num_p, Lp], b) pair from a batched scorer or a plain
     [num_p, Lp] sheet (``engine.py:799-805``), as numpy."""
     stacked, i = prod if isinstance(prod, tuple) else (prod[None], 0)
-    if isinstance(stacked, tiles.TiledSheet):
+    if isinstance(stacked, (tiles.TiledSheet, cuda_score.PlaneProd)):
         return stacked.gather(i, [y - x for x, y in pixels],
                               [x for x, _ in pixels])
     di = torch.tensor([y - x for x, y in pixels], dtype=torch.int64,

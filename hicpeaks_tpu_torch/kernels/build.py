@@ -10,9 +10,10 @@ edit rebuilds it.  A failed build raises: nothing falls back to the plain
 PyTorch twins.
 
 Floating-point contraction is off (``--fmad=false``) because the pass-B
-kernel replays the ring scan's add chains bit for bit, and the float64
+kernel replays the ring scan's add chains bit for bit, the float64
 completion kernels (``complete64.cu``) the host's float64 sums and
-products.
+products, and the scorer's kernels (``score_fused.cu``) torch's float32
+products and quotients.
 
 The host library (``csrc/host/*.cpp``: ``bandbuild.cpp``, the band
 scatter and the float64 ring sums, and ``fastload.cpp``, the threaded TXT
@@ -75,6 +76,22 @@ SIGNATURES = {
     'hp_finish64': [_vp, _vp, _vp, _i32, _i32, _i32, _vp, _vp, _vp, _i32,
                     _vp, _vp, _vp, _i32, _vp, _vp, _vp, _vp, _vp, _f64, _vp,
                     _vp, _vp, _vp, _vp, _vp],
+    # raw, bprod, cand, ir, num_p, Lp, L, sv, ev, wi, B, edges, ln2, margin,
+    # S, C, oc, cid0, flags, sms, stream
+    'hp_score_observe': [_vp, _vp, _vp, _vp, _i64, _i64, _i64, _vp, _vp,
+                         _vp, _i32, _vp, _f32, _f32, _i32, _i32, _vp, _vp,
+                         _vp, _i32, _vp],
+    # raw, gap, cid0, flags, thr, num_p, Lp, B, S, C, sig1, exact, keep, sus,
+    # sms, stream
+    'hp_score_keep': [_vp, _vp, _vp, _vp, _vp, _i64, _i64, _i32, _i32, _i32,
+                      _i32, _i32, _vp, _vp, _i32, _vp],
+    # raw, bprod, cand, ir, cband, gapdrop, num_p, Lp, L, sv, ev, wi, B,
+    # edges, ln2, C, d0, x0, K0, O0, ice0, fold0, cid0, d1, x1, K1, cid1,
+    # count1, gap1, prod1, sms, stream
+    'hp_score_gather': [_vp, _vp, _vp, _vp, _vp, _vp, _i64, _i64, _i64, _vp,
+                        _vp, _vp, _i32, _vp, _f32, _i32, _vp, _vp, _i32, _vp,
+                        _vp, _vp, _vp, _vp, _vp, _i32, _vp, _vp, _vp, _vp,
+                        _i32, _vp],
 }
 
 

@@ -68,8 +68,17 @@ def gap_reject_device(gap, num_p, L, s, c0=0, width=None):
     Gl = torch.where(pos > s, _shift1(A, -(s + 1)), 0)
     cnt = torch.where(pos < L, Gu - Gl, 0)
     width = Lp - c0 if width is None else width
-    return (_cols(cnt, c0, width)[None, :]
-            + shear_bcast(cnt, num_p, c0, width)) > 0
+    return _rowmajor(torch.add, _cols(cnt, c0, width)[None, :],
+                     shear_bcast(cnt, num_p, c0, width)) > 0
+
+
+def _rowmajor(op, a, b):
+    """``op(a, b)`` of two 2-D tensors into a new row-major tensor: a
+    broadcast with the sheared view would otherwise take the view's
+    column-major layout."""
+    out = torch.empty(tuple(map(max, a.shape, b.shape)),
+                      dtype=torch.result_type(a, b), device=a.device)
+    return op(a, b, out=out)
 
 
 def _cols(vec, c0, width):
@@ -99,7 +108,8 @@ def build_sheets(raw, w0, bias, IR, gap, ww_min, L, d_lo, d_hi, gap_s,
     cband = raw * _cols(w0, c0, T)[None, :] * shear_bcast(w0, num_p, c0, T)
     cband = torch.where(drow < ww_min, 0.0, cband)
     eband = torch.where(col < (L - drow), IR[:, None], 0.0)
-    Bprod = _cols(bias, c0, T)[None, :] * shear_bcast(bias, num_p, c0, T)
+    Bprod = _rowmajor(torch.mul, _cols(bias, c0, T)[None, :],
+                      shear_bcast(bias, num_p, c0, T))
     gap_drop = gap_reject_device(gap, num_p, L, gap_s, c0, T)
     cand = (raw != 0) & (drow >= d_lo) & (drow <= d_hi)
     return raw, cband, eband, Bprod, gap_drop, cand
@@ -140,6 +150,13 @@ def _log2_t(E, scored):
     return safeE, 3.0 * (torch.log(safeE) / ln2)
 
 
+def chunk_edges(c, dtype):
+    """(left, right) edges of chunk ids ``c``: 0 and 2^((c-1)/3) for chunk
+    1, else 2^((c-2)/3) and 2^((c-1)/3), in ``dtype``."""
+    lv = torch.where(c == 1, 0.0, torch.pow(2.0, (c - 2).to(dtype) / 3.0))
+    return lv, torch.pow(2.0, (c - 1).to(dtype) / 3.0)
+
+
 def lambda_chunks(E, scored):
     """Chunk id per pixel: chunk i covers the OPEN interval
     (2^((i-2)/3), 2^((i-1)/3)), chunk 1 is (0, 1); pixels exactly on an
@@ -148,18 +165,12 @@ def lambda_chunks(E, scored):
     safeE, t = _log2_t(E, scored)
     cid = torch.floor(t).to(torch.int32) + 2
     cid = torch.clamp(cid, min=1)
-
-    def edges(c):
-        lv = torch.where(c == 1, 0.0,
-                         torch.pow(2.0, (c - 2).to(E.dtype) / 3.0))
-        return lv, torch.pow(2.0, (c - 1).to(E.dtype) / 3.0)
-
     # float-rounding guard: nudge into the neighbouring chunk when the
     # computed id misses the strict-open membership test
-    lv, rv = edges(cid)
+    lv, rv = chunk_edges(cid, E.dtype)
     cid = torch.where((safeE <= lv) & (cid > 1), cid - 1,
                       torch.where(safeE >= rv, cid + 1, cid))
-    lv, rv = edges(cid)
+    lv, rv = chunk_edges(cid, E.dtype)
     valid = scored & (safeE > lv) & (safeE < rv)
     return cid, rv, valid
 
