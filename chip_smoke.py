@@ -541,8 +541,12 @@ def completion_checks(call, reps, tag):
         raise AssertionError(f'{tag}: the main path called {sorted(seen)} '
                              'of the completion\'s kernels')
 
-    def host(ts):
-        return [t.cpu() for t in ts]
+    def host(rec):
+        """The record's tensors on the host (the postcheck's prod, which
+        neither kernel reads, left out)."""
+        return type(rec)._make(
+            host(a) if isinstance(a, tuple) else
+            a.cpu() if isinstance(a, torch.Tensor) else None for a in rec)
 
     def host_ms(fn):
         times = []
@@ -558,17 +562,18 @@ def completion_checks(call, reps, tag):
                            b.view(torch.int64) if b.is_floating_point()
                            else b)
 
-    raw, ctx, bgs, kept, sus, O_s, S, C = seen['window_stats64']
-    hist, _, _, kept_f, sus_f, ptab, sig = seen['finish64']
-    ws_args = (raw, ctx, bgs, kept, sus, O_s, S, C)
-    ws_twin = (ctx, bgs, host(kept), host(sus), O_s.cpu(), S, C)
+    raw, ctx, bgs, out = seen['window_stats64']
+    out_f, _, _, ptab, sig = seen['finish64']
+    hist, sus = out.hist, out.sus
+    _, S, C = hist.shape
+    ws_args = (raw, ctx, bgs, out)
+    ws_twin = (ctx, bgs, host(out))
     stats, cell = real['window_stats64'](*ws_args)
     w_stats, w_cell = cc.window_stats64_twin(*ws_twin)
     if not (same(stats, w_stats) and same(cell, w_cell)):
         raise AssertionError(f'{tag}: window_stats64 differs from its twin')
-    fin_args = (hist, cell, stats, kept_f, sus_f, ptab, sig)
-    fin_twin = (hist.cpu(), w_cell, w_stats, host(kept_f), host(sus_f),
-                ptab.cpu(), sig)
+    fin_args = (out_f, cell, stats, ptab, sig)
+    fin_twin = (host(out_f), w_cell, w_stats, ptab.cpu(), sig)
     rows, fin, head = real['finish64'](*fin_args)
     w_rows, w_fin, w_head = cc.finish64_twin(*fin_twin)
     if not (same(fin, w_fin) and same(head, w_head)
@@ -583,14 +588,14 @@ def completion_checks(call, reps, tag):
     w = ctx.maxw
     num_p, Lp = raw.shape
     B, N = cell.shape
-    K = kept[1].shape[1]
+    K = out.d.shape[1]
     live = torch.zeros((B, N), dtype=torch.bool, device=raw.device)
-    for off, (cnt, d, x) in ((0, kept), (K, sus)):
-        live[:, off:off + d.shape[1]] = (
-            torch.arange(d.shape[1], device=raw.device)[None]
-            < cnt.to(raw.device)[:, None])
-    d_all = torch.cat([kept[1], sus[1]], 1)[live].long()
-    x_all = torch.cat([kept[2], sus[2]], 1)[live].long()
+    for off, pixels in ((0, out), (K, sus)):
+        live[:, off:off + pixels.d.shape[1]] = (
+            torch.arange(pixels.d.shape[1], device=raw.device)[None]
+            < pixels.cnt.to(raw.device)[:, None])
+    d_all = torch.cat([out.d, sus.d], 1)[live].long()
+    x_all = torch.cat([out.x, sus.x], 1)[live].long()
     a, b = torch.meshgrid(torch.arange(-w, w + 1, device=raw.device),
                           torch.arange(-w, w + 1, device=raw.device),
                           indexing='ij')

@@ -2,9 +2,10 @@
 holds the band.
 
 The fused pyHICCUPS scorer (``engine._compact_batched``) leaves on the
-device, for each background, the compacted superset of its significant
-pixels, the lambda-chunk edge suspects with their device (chunk, count)
-cells and keep thresholds, and the integer (chunk, count) histogram.
+device its ``ops.score.Compacted`` record: for each background, the
+compacted superset of its significant pixels, the lambda-chunk edge
+suspects with their device (chunk, count) cells and keep thresholds, and
+the integer (chunk, count) histogram.
 :func:`complete_on_device` finishes them there, as
 ``hostcomplete._compact_to_host`` does on the host, with the same numbers:
 
@@ -23,34 +24,23 @@ cells and keep thresholds, and the integer (chunk, count) histogram.
   row-major), brought back in two blocking reads: the counts with the
   audit's, then the rows.
 
-The engine takes this route for the batched scorer whenever float64
-completion applies and the device holds the chromosome's whole band
-(:func:`serves`), on a card and on the CPU alike; the host route stays for
-pyBHFDR, the dense scorer, checkify and the tiles.  Under a capture it is
-one ``hicpeaks.complete64`` span.
+The engine takes this route for the batched scorer on one device
+whenever float64 completion applies, on a card and on the CPU alike; the
+host route stays for pyBHFDR, the dense scorer, checkify and the tiles.
+Under a capture it is one ``hicpeaks.complete64`` span.
 """
 from __future__ import annotations
 
 import functools
-import logging
 
 import numpy as np
 import torch
 
 from ..ops import cuda_complete
-from .hostcomplete import ptab64
+from .hostcomplete import log_failed_audit, ptab64
 from .spans import SYNC, span
 
-log = logging.getLogger(__name__)
-
 _ROW = ('x', 'y', 'O', 'ICE', 'Fold', 'p', 'q')
-
-
-def serves(ctx):
-    """Whether :func:`complete_on_device` completes the chromosome whose
-    float64 context is ``ctx`` (None without float64 completion): the
-    host holds the whole band, as the device does."""
-    return ctx is not None and getattr(ctx.bands, 'raw_spans', None) is None
 
 
 @functools.lru_cache(maxsize=4)
@@ -64,20 +54,16 @@ def _read(t):
 
 
 def complete_on_device(sh, out, bgs, ctx, sig):
-    """The batched scorer's bundle ``out`` (``engine._compact_batched``,
-    exact mode) -> one host dict a background, as
-    ``hostcomplete._compact_to_host`` returns it, or None where the
-    suspect audit fails.  ``bgs``: (p, w, kind, capture) a background."""
+    """The batched scorer's ``ops.score.Compacted`` ``out`` (exact mode)
+    -> one host dict a background, as ``hostcomplete._compact_to_host``
+    returns it, or None where the suspect audit fails.  ``bgs``: (p, w,
+    kind, capture) a background."""
     with span('hicpeaks.complete64'):
-        cnt, d, x, hist = out[0], out[1], out[2], out[7]
-        sus = out[9]
-        B, S, C = hist.shape
+        B, S, C = out.hist.shape
         stats, cell = cuda_complete.window_stats64(
-            sh.raw, ctx, [(p, kind) for p, _, kind, _ in bgs], (cnt, d, x),
-            sus[:3], sus[4], S, C)
+            sh.raw, ctx, [(p, kind) for p, _, kind, _ in bgs], out)
         rows, fin, head = cuda_complete.finish64(
-            hist, cell, stats, (cnt, d, x), sus, _ptab_on(S, C, hist.device),
-            sig)
+            out, cell, stats, _ptab_on(S, C, out.hist.device), sig)
         # the kept rows in order, background by background
         T = fin.shape[0]
         dest = torch.where(fin, torch.cumsum(fin, 0) - 1,
@@ -92,15 +78,10 @@ def complete_on_device(sh, out, bgs, ctx, sig):
         for b in range(B):
             r, s = got[s:s + n_fin[b]].T, s + n_fin[b]
             if n_missed[b]:
-                log.warning(
-                    'suspect-corrected BH table made %d (chunk, count) cells '
-                    'significant below the device keep threshold — falling '
-                    'back to the dense scorer for this background '
-                    '(f32-chunked; loci unaffected)', int(n_missed[b]))
-                res.append(None)
+                res.append(log_failed_audit(int(n_missed[b])))
                 continue
             row = {k: np.ascontiguousarray(v) for k, v in zip(_ROW, r)}
             row['x'] = row['x'].astype(np.int32)
             row['y'] = row['y'].astype(np.int32)
-            res.append(dict(row, prod=(out[8], b)))
+            res.append(dict(row, prod=(out.prod, b)))
         return res

@@ -61,13 +61,15 @@ from ..ops import scan as scan_ops
 from ..ops import score as score_ops
 from ..ops.band import ChromBands
 from ..ops.hostexact import ExactCtx
+from ..ops.score import Compacted, Suspects, one_background
 from ..parallel import tiles
 from ..parallel.mesh import check_mesh
-from . import complete64, poolplan
+from . import poolplan
 from .clustering import local_clustering
 from .complete64 import complete_on_device
 from .config import BHFDRConfig, HiccupsConfig
-from .hostcomplete import _bhfdr_to_host, _compact_to_host, _dense_to_host
+from .hostcomplete import (_bhfdr_to_host, _compact_to_host, _dense_to_host,
+                           _segmented_to_host)
 from .spans import SYNC, span
 
 _BH_SLACK = 0.01   # chunk_bh_keep superset inflation: covers the f32 qtab's
@@ -424,27 +426,31 @@ def _keep_batched(sh, obs, thr2, sig, o_cap, exact_mode, margin,
     """The batched scorer's second stage, from the keep thresholds ``thr2``
     [B, S] of the (summed) histogram: the keep mask (BH, gap filter, and
     with ``exact_mode`` the lambda-chunk edge suspects set aside) and its
-    row-major compaction.  Returns ((cnt, d, x, O, ICE, Fold, cid) with a
-    leading [B] axis, the suspect bundle (cnt, d, x, cid, O, gap) or ())."""
-    E, O, ICE, Fold, scored, _prod, cid, valid = obs
+    row-major compaction.  Returns the :class:`Compacted` without the
+    histogram: its ``hist`` and its suspects' ``thr`` are None."""
+    E, O, ICE, Fold, scored, prod, cid, valid = obs
     keep = scored & score_ops.chunk_keep(O, cid, valid, thr2, sig,
                                          o_cap + 1) & ~sh.gap_drop
     gb, gu = _gather_flat_b, _gather_flat_shared
-    sus_bundle = ()
+    sus = None
     if exact_mode:
-        sus = score_ops.lambda_suspects(E, scored, margin)
-        keep = keep & ~sus
-        cnt_s, d_s, x_s = score_ops.compact_mask_batched(sus)
-        cid_s = torch.where(gb(valid, d_s, x_s), gb(cid, d_s, x_s), 0)
-        O_s = torch.clamp(torch.floor(gu(O, d_s, x_s)), 0, o_cap) \
-            .to(torch.int32)
-        sus_bundle = (cnt_s, d_s, x_s, cid_s, O_s, gu(sh.gap_drop, d_s, x_s))
+        is_sus = score_ops.lambda_suspects(E, scored, margin)
+        keep = keep & ~is_sus
+        cnt_s, d_s, x_s = score_ops.compact_mask_batched(is_sus)
+        sus = Suspects(
+            cnt_s, d_s, x_s,
+            cid=torch.where(gb(valid, d_s, x_s), gb(cid, d_s, x_s), 0),
+            O=torch.clamp(torch.floor(gu(O, d_s, x_s)), 0, o_cap)
+            .to(torch.int32),
+            gap=gu(sh.gap_drop, d_s, x_s), thr=None)
     cnt, d_idx, x_idx = score_ops.compact_mask_batched(keep)
     if check:
         _check_in_band(cnt, d_idx, x_idx, O.shape[0], sh.L)
-    cid_g = torch.where(gb(valid, d_idx, x_idx), gb(cid, d_idx, x_idx), 0)
-    return (cnt, d_idx, x_idx, gu(O, d_idx, x_idx), gu(ICE, d_idx, x_idx),
-            gb(Fold, d_idx, x_idx), cid_g), sus_bundle
+    return Compacted(
+        cnt, d_idx, x_idx, O=gu(O, d_idx, x_idx), ICE=gu(ICE, d_idx, x_idx),
+        Fold=gb(Fold, d_idx, x_idx),
+        cid=torch.where(gb(valid, d_idx, x_idx), gb(cid, d_idx, x_idx), 0),
+        hist=None, prod=prod, sus=sus)
 
 
 def _compact_batched(sh, SV, EV, wis, sig, o_cap, exact_mode, margin,
@@ -456,10 +462,9 @@ def _compact_batched(sh, SV, EV, wis, sig, o_cap, exact_mode, margin,
     its window radius.  Where ``cuda_score.serves``, the dense stages are
     the fused kernels (:func:`_compact_fused`), else the eager chain.
 
-    Returns the 10-slot bundle with a leading [B] axis: (cnt, d, x, O, ICE,
-    Fold, cid, hist [B, S, C], prod, suspects) with prod [B, num_p, Lp] or
-    its ``cuda_score.PlaneProd`` handle and the suspect bundle (cnt, d, x,
-    cid, O, gap, thr) or () without ``exact_mode``."""
+    Returns the :class:`Compacted`, its prod [B, num_p, Lp] or its
+    ``cuda_score.PlaneProd`` handle, its suspects None without
+    ``exact_mode``."""
     with span('hicpeaks.score'):
         if cuda_score.serves(sh, SV, EV, check):
             with span('hicpeaks.score_fused'):
@@ -474,14 +479,14 @@ def _compact_batched(sh, SV, EV, wis, sig, o_cap, exact_mode, margin,
         hist = score_ops.chunk_hist(oc, cid0, S, C)             # [B*S, C]
         _qtab, thr2 = score_ops.chunk_thresholds(hist, B, S, sig, _BH_SLACK,
                                                  O.dtype)
-        bundle, sus = _keep_batched(sh, obs, thr2, sig, o_cap, exact_mode,
-                                    margin, check)
-        sus = sus + (thr2.to(torch.int32),) if sus else ()
-        return bundle + (hist.reshape(B, S, C), obs[5], sus)
+        kept = _keep_batched(sh, obs, thr2, sig, o_cap, exact_mode, margin,
+                             check)
+        return kept._replace(hist=hist.reshape(B, S, C), sus=kept.sus and
+                             kept.sus._replace(thr=thr2.to(torch.int32)))
 
 
 def _compact_fused(sh, SV, EV, wis, sig, o_cap, exact_mode, margin, s_rows):
-    """:func:`_compact_batched`'s bundle through the fused kernels
+    """:func:`_compact_batched`'s record through the fused kernels
     (``ops/cuda_score``): one pass for the histogram's inputs and the
     flags, the histogram and its thresholds as on the eager chain, the
     keep and suspect masks, their compactions, and the compacted pixels'
@@ -492,19 +497,21 @@ def _compact_fused(sh, SV, EV, wis, sig, o_cap, exact_mode, margin, s_rows):
     hist = score_ops.chunk_hist(oc, cid0, S, C)                 # [B*S, C]
     _qtab, thr2 = score_ops.chunk_thresholds(hist, B, S, sig, _BH_SLACK,
                                              sh.raw.dtype)
-    keep, sus = cuda_score.score_keep(sh.raw, sh.gap_drop, cid0, flags,
-                                      thr2, sig, C, exact_mode)
+    keep, is_sus = cuda_score.score_keep(sh.raw, sh.gap_drop, cid0, flags,
+                                         thr2, sig, C, exact_mode)
     del oc, cid0, flags
-    sus_set = score_ops.compact_mask_batched(sus) if exact_mode else None
-    cnt, d_idx, x_idx = score_ops.compact_mask_batched(keep)
-    got = cuda_score.score_gather(sh, SV, EV, wis, (d_idx, x_idx),
-                                  sus_set and sus_set[1:], C, prod=False)
-    sus_bundle = ()
+    sus = None
     if exact_mode:
-        sus_bundle = sus_set + got[4:7] + (thr2.to(torch.int32),)
-    prod = cuda_score.PlaneProd(sh, SV, EV, wis, C)
-    return ((cnt, d_idx, x_idx) + got[:4]
-            + (hist.reshape(B, S, C), prod, sus_bundle))
+        cnt_s, d_s, x_s = score_ops.compact_mask_batched(is_sus)
+    cnt, d_idx, x_idx = score_ops.compact_mask_batched(keep)
+    O, ICE, Fold, cid, *at_sus = cuda_score.score_gather(
+        sh, SV, EV, wis, (d_idx, x_idx), (d_s, x_s) if exact_mode else None,
+        C, prod=False)
+    if exact_mode:
+        sus = Suspects(cnt_s, d_s, x_s, *at_sus, thr=thr2.to(torch.int32))
+    return Compacted(cnt, d_idx, x_idx, O, ICE, Fold, cid,
+                     hist=hist.reshape(B, S, C),
+                     prod=cuda_score.PlaneProd(sh, SV, EV, wis, C), sus=sus)
 
 
 def _score_device_bhfdr_compact(sh, bSV, bEV, sig, wi, check=False):
@@ -594,21 +601,25 @@ def _score_one(sh, bSV, bEV, wi, sig, route, chunked, exact=None):
         if route.o_cap is None:
             out, prod = _score_device_segmented(sh, bSV, bEV, sig, wi,
                                                 route.check)
-            return _compact_to_host(_to_host(out), prod, None)
+            return _segmented_to_host(_to_host(out), prod)
         out = _compact_batched(
             sh, [bSV], [bEV], [wi], sig, route.o_cap,
             exact_mode=False, margin=0.0,
             s_rows=score_ops.chunk_rows(route.o_cap, sig), check=route.check)
-        fetched = _to_host(tuple(a[0] for a in out[:8]))
-        return _compact_to_host(fetched, (out[8], 0), sig, exact=exact)
+        fetched = one_background(_to_host(out._replace(prod=None)), 0)
+        return _compact_to_host(fetched, (out.prod, 0), sig, exact=exact)
     return _score_dense(sh, bSV, bEV, sig, wi, chunked)
 
 
 def _to_host(tree):
-    """Tensors -> numpy arrays through nested tuples, one blocking read
-    (a ``hicpeaks.sync`` span) a tensor."""
+    """Tensors -> numpy arrays through nested tuples (a record keeps its
+    type, None stays None), one blocking read (a ``hicpeaks.sync`` span) a
+    tensor."""
     if isinstance(tree, tuple):
-        return tuple(_to_host(t) for t in tree)
+        got = tuple(map(_to_host, tree))
+        return tree._make(got) if hasattr(tree, '_make') else got
+    if tree is None:
+        return None
     with span(SYNC):
         return tree.cpu().numpy()
 
@@ -617,10 +628,10 @@ def _hiccups_scored(bands: ChromBands, cfg: HiccupsConfig, plan, p_list,
                     pairs, total, route, device):
     """One chromosome through its route, completed to per-pair (rK, rY)
     host dicts: the front, then the batched scorer where the route takes
-    it, completed on the device where it holds the whole band
+    it, completed on the device with float64 completion
     (:mod:`.complete64`) and else on the host, and :func:`_score_dense`
-    for each background whose suspect audit fails there; off the batched
-    route, :func:`_score_one` for every background."""
+    for each background whose suspect audit fails; off the batched route,
+    :func:`_score_one` for every background."""
     ww = tuple(cfg.ww)
     t_left = poolplan.left_threshold(total)
     sh, outs, decision = _scan_front(
@@ -644,15 +655,13 @@ def _hiccups_scored(bands: ChromBands, cfg: HiccupsConfig, plan, p_list,
             [w for _, w, _, _ in bgs], cfg.siglevel, route.o_cap,
             exact_mode=ctx is not None, margin=margin,
             s_rows=score_ops.chunk_rows(route.o_cap, cfg.siglevel))
-        if complete64.serves(ctx):
+        if ctx is not None:
             res = complete_on_device(sh, out, bgs, ctx, cfg.siglevel)
         else:
-            fetched, sus = _to_host((out[:8], out[9]))
-            for b, (p, _, kind, _) in enumerate(bgs):
-                res[b] = _compact_to_host(
-                    tuple(a[b] for a in fetched), (out[8], b), cfg.siglevel,
-                    exact=ctx and (ctx, p, kind),
-                    sus=tuple(a[b] for a in sus) if sus else None)
+            fetched = _to_host(out._replace(prod=None))
+            res = [_compact_to_host(one_background(fetched, b),
+                                    (out.prod, b), cfg.siglevel)
+                   for b in range(len(bgs))]
     for b, (p, w, kind, t) in enumerate(bgs):
         if res[b] is not None:
             continue
@@ -821,19 +830,23 @@ def _hiccups_tiles(ts, outs_t, bgs, sig, o_cap, ctx, margin):
             [o and o[7] for o in obs], S, C, mesh)
         _qtab, thr2 = score_ops.chunk_thresholds(
             hist, B, S, sig, _BH_SLACK, obs[mesh.local_tiles[0]][1].dtype)
+        # each tile's pixels cut to their counts, x tile-local
+        rows, rows_s = ('d', 'x', 'O', 'ICE', 'Fold', 'cid'), \
+            ('d', 'x', 'cid', 'O', 'gap')
         parts, parts_s, prods = [], [], [None] * mesh.size
         for i in mesh.local_tiles:
-            bundle, sus = _keep_batched(ts.tiles[i], obs[i],
-                                        thr2.to(mesh.devices[i]), sig, o_cap,
-                                        exact_mode, margin)
-            prods[i] = obs[i][5]
+            kept = _keep_batched(ts.tiles[i], obs[i],
+                                 thr2.to(mesh.devices[i]), sig, o_cap,
+                                 exact_mode, margin)
+            prods[i] = kept.prod
             obs[i] = None
-            for got, out in ((bundle, parts), (sus, parts_s)):
-                if got:
-                    h = _to_host(got)
-                    out.append((i * ts.T, [tuple(a[b][:h[0][b]]
-                                                 for a in h[1:])
-                                           for b in range(B)]))
+            h = _to_host(kept._replace(prod=None))
+            for rec, names, out in ((h, rows, parts),
+                                    (h.sus, rows_s, parts_s)):
+                if rec is not None:
+                    out.append((i * ts.T, [
+                        tuple(getattr(rec, f)[b][:rec.cnt[b]] for f in names)
+                        for b in range(B)]))
         merged = tiles.merge_rowmajor(parts, mesh)
         merged_s = tiles.merge_rowmajor(parts_s, mesh) if exact_mode else None
         hist_b = _to_host(hist).reshape(B, S, C)
@@ -843,10 +856,13 @@ def _hiccups_tiles(ts, outs_t, bgs, sig, o_cap, ctx, margin):
     for b, (p, _, kind, _) in enumerate(bgs):
         sus = None
         if exact_mode:
-            sus = (len(merged_s[b][0]),) + merged_s[b] + (thr_h[b],)
-        res.append(_compact_to_host(
-            (len(merged[b][0]),) + merged[b] + (hist_b[b],), (prod, b), sig,
-            exact=ctx and (ctx, p, kind), sus=sus))
+            sus = Suspects(cnt=len(merged_s[b][0]),
+                           **dict(zip(rows_s, merged_s[b])), thr=thr_h[b])
+        fetched = Compacted(cnt=len(merged[b][0]),
+                            **dict(zip(rows, merged[b])), hist=hist_b[b],
+                            prod=None, sus=sus)
+        res.append(_compact_to_host(fetched, (prod, b), sig,
+                                    exact=ctx and (ctx, p, kind)))
     return res
 
 

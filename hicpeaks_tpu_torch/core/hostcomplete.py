@@ -6,15 +6,15 @@ significant pixels and ships them compacted, together with the exact
 integer (chunk, count) histogram.  This module finishes the reference's
 statistics in float64 on the host, as ``hicpeaks_tpu`` does:
 
-* ``host_chunk_qtab64`` / ``host_chunk_complete`` and
-  ``host_bh_complete`` are copies of ``hicpeaks_tpu/ops/score.py:889-958``,
-  and ``host_chunk_dense`` / ``host_bh`` of ``:961-1016``, whose module
-  imports JAX; the batched scorer's (S, C) p table is scipy's, made once
-  a shape (:func:`ptab64`);
+* ``host_chunk_qtab64`` and ``host_bh_complete`` are copies of
+  ``hicpeaks_tpu/ops/score.py:889-958``, and ``host_chunk_dense`` /
+  ``host_bh`` of ``:961-1016``, whose module imports JAX; the batched
+  scorer's (S, C) p table is scipy's, made once a shape (:func:`ptab64`);
 * ``_compact_to_host`` is ``hicpeaks_tpu/core/engine.py:928-1036`` for the
-  histogram bundles of the pyHICCUPS path (exact and suspect branches)
-  and for the segmented-BH bundle, whose device p and q it emits as
-  they are;
+  batched scorer's ``ops.score.Compacted`` (exact and suspect branches; p
+  and q looked up as ``host_chunk_complete`` does), and
+  ``_segmented_to_host`` for the segmented-BH bundle, whose device p and
+  q it emits as they are;
 * ``_bhfdr_to_host`` is ``hicpeaks_tpu/core/engine.py:1124-1162`` for the
   global-BH bundle of the pyBHFDR path;
 * ``_dense_to_host`` is the host half of the dense scorer
@@ -23,12 +23,11 @@ statistics in float64 on the host, as ``hicpeaks_tpu`` does:
 Which routes complete here: pyBHFDR (its p is a per-pixel ``1 -
 poisson.cdf`` with a continuous E, so no table serves it), the dense
 scorer, checkify's per-background scorer, segmented BH, the tiles of a
-mesh, and the batched pyHICCUPS scorer where :func:`.complete64.serves`
-declines it (bands split across processes).  Elsewhere the batched
-pyHICCUPS scorer completes on the device (:mod:`.complete64`), with the
-same numbers; its CPU twin runs this module's table steps
-(:func:`chunk_qtab`, :func:`move_suspects`, :func:`audit`,
-:func:`lookup`).
+mesh, and the batched pyHICCUPS scorer without float64 completion.  With
+it, the batched pyHICCUPS scorer on one device completes on that device
+(:mod:`.complete64`), with the same numbers; its CPU twin runs this
+module's table steps (:func:`chunk_qtab`, :func:`move_suspects`,
+:func:`audit`, :func:`lookup`).
 
 The exact branches recompute each pixel's E in float64
 (:mod:`hicpeaks_tpu_torch.ops.hostexact`).  The histogram branch moves lambda-chunk
@@ -119,26 +118,21 @@ def audit(qtab, hist64, new, thr_dev, sig):
     return int(missed.sum())
 
 
+def log_failed_audit(missed):
+    """Log the ``missed`` cells of a background's failed audit, which
+    sends it to the dense scorer; returns None, its completion."""
+    log.warning(
+        'suspect-corrected BH table made %d (chunk, count) cells '
+        'significant below the device keep threshold — falling back '
+        'to the dense scorer for this background (f32-chunked; loci '
+        'unaffected)', missed)
+
+
 def lookup(ptab, qtab, cells, valid):
     """float64 p and q of the (chunks, counts) ``cells``, 1 where not
     ``valid``."""
     return (np.where(valid, ptab[cells], 1.0),
             np.where(valid, qtab[cells], 1.0))
-
-
-def host_chunk_complete(O_small, cid_small, hist):
-    """Exact float64 (p, q) of compacted pixels by (chunk, count) lookup
-    into the float64 tables of the full histogram; chunk 0 (the invalid
-    trash row) carries p = q = 1."""
-    ptab, qtab = host_chunk_qtab64(hist)
-    S, C = qtab.shape
-    oc = np.clip(np.floor(np.asarray(O_small, np.float64)).astype(np.int64),
-                 0, C - 1)
-    cs = np.clip(np.asarray(cid_small, np.int64), 0, S - 1)
-    p, q = ptab[cs, oc], qtab[cs, oc]
-    p[cs == 0] = 1.0
-    q[cs == 0] = 1.0
-    return p, q
 
 
 def host_bh_complete(p_small, ranks, m, sig):
@@ -159,7 +153,7 @@ def host_bh_complete(p_small, ranks, m, sig):
 def host_chunk_dense(O, cid, valid, sig):
     """Float64 p/q/keep for the DENSE fallback path (keep-cap overflow or
     an explicit host BH request): the exact-histogram completion of
-    :func:`host_chunk_complete` computed entirely from fetched dense
+    :func:`_compact_to_host` computed entirely from fetched dense
     arrays.  Returns (p64, q64, keep) dense arrays (p = q = 1 where
     invalid)."""
     O = np.asarray(O)
@@ -272,110 +266,74 @@ def _bhfdr_to_host(fetched, prod, sig, exact=None):
                     prod=prod)
 
 
-def _compact_to_host(fetched, prod, sig, exact=None, sus=None):
-    """One background's fetched bundle -> host dict of its significant
-    pixels (x, y, O, ICE, Fold, p, q, prod), or None when the suspect
-    audit fails.
-
-    ``fetched`` = (cnt, d_idx, x_idx, O, ICE, Fold, cid, hist) as numpy
-    arrays; ``prod`` is the device handle the postcheck reads.  ``sig``
-    None: the bundle is the segmented-BH form (cnt, d, x, O, ICE, Fold, p,
-    q) of kept pixels, emitted as it is.  ``exact`` = (ExactCtx, p, kind)
-    recomputes the statistics in float64; ``sus`` is the fetched suspect
-    bundle (cnt, d, x, cid, O, gap, thr).  A corrected table that could
-    hide a missed pixel returns None: the caller re-scores the background
-    with the dense scorer."""
+def _segmented_to_host(fetched, prod):
+    """The segmented-BH bundle (cnt, d_idx, x_idx, O, ICE, Fold, p, q) of
+    one background's kept pixels, fetched as numpy arrays -> its host
+    dict, the device's p and q emitted as they are."""
     with span('hicpeaks.host_complete'):
-        cnt, d_idx, x_idx, Ov, ICEv, Foldv, cid, hist = fetched
+        cnt, d_idx, x_idx, Ov, ICEv, Foldv, pv, qv = fetched
         n = int(cnt)
-        d_idx, x_idx = d_idx[:n], x_idx[:n]
-        if sig is None:
-            return dict(x=x_idx, y=x_idx + d_idx, O=Ov[:n], ICE=ICEv[:n],
-                        Fold=Foldv[:n], p=cid[:n], q=hist[:n], prod=prod)
-        if exact is None:
-            p64, q64 = host_chunk_complete(Ov[:n], cid[:n], hist)
-            fin = q64 <= sig
-            return dict(x=x_idx[fin], y=x_idx[fin] + d_idx[fin], O=Ov[:n][fin],
-                        ICE=ICEv[:n][fin], Fold=Foldv[:n][fin], p=p64[fin],
-                        q=q64[fin], prod=prod)
+        return dict(x=x_idx[:n], y=x_idx[:n] + d_idx[:n], O=Ov[:n],
+                    ICE=ICEv[:n], Fold=Foldv[:n], p=pv[:n], q=qv[:n],
+                    prod=prod)
 
-        ctx, p_set, kind = exact
-        S, C = np.shape(hist)
-        hist64 = np.asarray(hist, np.int64)
-        sus_data = None
+
+def _compact_to_host(fetched, prod, sig, exact=None):
+    """One background's row of a fetched ``ops.score.Compacted`` (numpy
+    arrays; its ``prod`` is not read) -> host dict of its significant
+    pixels (x, y, O, ICE, Fold, p, q, prod), p and q looked up in the BH
+    tables of its histogram; ``prod`` is the device handle the postcheck
+    reads.  ``exact`` = (ExactCtx, p, kind) recomputes the statistics and
+    chunks in float64 and corrects the suspects (a record has them only
+    with ``exact``).  None where the corrected table could hide a missed
+    pixel: the caller re-scores the background with the dense scorer."""
+    with span('hicpeaks.host_complete'):
+        n = int(fetched.cnt)
+        d_idx, x_idx = fetched.d[:n], fetched.x[:n]
+        S, C = np.shape(fetched.hist)
+        hist64 = np.asarray(fetched.hist, np.int64)
+        sus = fetched.sus
+        if exact is None:
+            # the device's statistics and chunks; chunk 0 is the trash row
+            O64, ice64, fold64 = fetched.O[:n], fetched.ICE[:n], \
+                fetched.Fold[:n]
+            cid64 = np.asarray(fetched.cid[:n], np.int64)
+            valid64 = np.clip(cid64, 0, S - 1) > 0
+        else:
+            ctx, p_set, kind = exact
+            O64, E64, fold64, ice64 = hostexact.exact_stats(
+                ctx, d_idx, x_idx, p_set, kind)
+            cid64, valid64 = hostexact.chunk_ids64(E64, E64 > 0)
         if sus is not None:
-            ns = int(sus[0])
-            ds, xs = sus[1][:ns], sus[2][:ns]
+            ns = int(sus.cnt)
+            ds, xs = sus.d[:ns], sus.x[:ns]
             # the device folded chunks >= S into overflow row S-1, so the
             # subtraction targets the row the pixel actually occupies
-            cid_dev = np.clip(np.asarray(sus[3][:ns], np.int64), 0, S - 1)
-            O_s = np.asarray(sus[4][:ns], np.int64)
-            gap_s = np.asarray(sus[5][:ns], bool)
+            cid_dev = np.clip(np.asarray(sus.cid[:ns], np.int64), 0, S - 1)
+            O_s = np.asarray(sus.O[:ns], np.int64)
+            gap_s = np.asarray(sus.gap[:ns], bool)
             O64s, E64s, fold64s, ice64s = hostexact.exact_stats(
                 ctx, ds, xs, p_set, kind)
             cid64s, valid64s = hostexact.chunk_ids64(E64s, E64s > 0)
             new = (np.where(valid64s, np.clip(cid64s, 0, S - 1), 0), O_s)
             hist64 = move_suspects(hist64, (cid_dev, O_s), new)
-            sus_data = (ds, xs, new, gap_s, O64s, fold64s, ice64s, valid64s,
-                        np.asarray(sus[6], np.int64))
-        O64, E64, fold64, ice64 = hostexact.exact_stats(
-            ctx, d_idx, x_idx, p_set, kind)
-        cid64, valid64 = hostexact.chunk_ids64(E64, E64 > 0)
         with span('hicpeaks.qtab64'):
             ptab = ptab64(S, C)
             qtab = chunk_qtab(hist64, ptab)
-        oc = np.clip(np.floor(O64).astype(np.int64), 0, C - 1)
+        oc = np.clip(np.floor(np.asarray(O64, np.float64)).astype(np.int64),
+                     0, C - 1)
         p64, q64 = lookup(ptab, qtab, (np.clip(cid64, 0, S - 1), oc), valid64)
         fin = q64 <= sig
         out = dict(x=x_idx[fin], y=x_idx[fin] + d_idx[fin], O=O64[fin],
                    ICE=ice64[fin], Fold=fold64[fin], p=p64[fin], q=q64[fin],
                    prod=prod)
-        if sus_data is None:
+        if sus is None:
             return out
-        (ds, xs, new, gap_s, O64s, fold64s, ice64s, valid64s,
-         thr_dev) = sus_data
         # audit the device superset against the corrected table
-        missed = audit(qtab, hist64, new, thr_dev, sig)
+        missed = audit(qtab, hist64, new, np.asarray(sus.thr, np.int64), sig)
         if missed:
-            log.warning(
-                'suspect-corrected BH table made %d (chunk, count) cells '
-                'significant below the device keep threshold — falling back '
-                'to the dense scorer for this background (f32-chunked; loci '
-                'unaffected)', missed)
-            return None
+            return log_failed_audit(missed)
         p64s, q64s = lookup(ptab, qtab, new, valid64s)
-        fin_s = (q64s <= sig) & ~gap_s
-        return dict(
-            x=np.concatenate([out['x'], xs[fin_s]]),
-            y=np.concatenate([out['y'], xs[fin_s] + ds[fin_s]]),
-            O=np.concatenate([out['O'], O64s[fin_s]]),
-            ICE=np.concatenate([out['ICE'], ice64s[fin_s]]),
-            Fold=np.concatenate([out['Fold'], fold64s[fin_s]]),
-            p=np.concatenate([out['p'], p64s[fin_s]]),
-            q=np.concatenate([out['q'], q64s[fin_s]]),
-            prod=prod)
-        if sus_data is None:
-            return out
-        (ds, xs, cid_new, O_s, gap_s, O64s, fold64s, ice64s, valid64s,
-         thr_dev) = sus_data
-        # audit the device superset against the CORRECTED table: a cell that
-        # is significant below the device's count threshold and still holds
-        # non-suspect pixels could hide a missed peak (row 0 is the trash row)
-        hist_nosus = hist64.copy()
-        np.add.at(hist_nosus, (cid_new, O_s), -1)
-        counts_i = np.arange(C, dtype=np.int64)[None, :]
-        missed = ((qtab <= sig) & (counts_i < thr_dev[:, None])
-                  & (hist_nosus > 0))
-        missed[0, :] = False
-        if missed.any():
-            log.warning(
-                'suspect-corrected BH table made %d (chunk, count) cells '
-                'significant below the device keep threshold — falling back '
-                'to the dense scorer for this background (f32-chunked; loci '
-                'unaffected)', int(missed.sum()))
-            return None
-        p64s = np.where(valid64s, ptab[cid_new, O_s], 1.0)
-        q64s = np.where(valid64s, qtab[cid_new, O_s], 1.0)
         fin_s = (q64s <= sig) & ~gap_s
         return dict(
             x=np.concatenate([out['x'], xs[fin_s]]),

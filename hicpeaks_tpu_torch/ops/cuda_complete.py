@@ -64,8 +64,7 @@ def walks_natively(ctx):
     kernel keeps: the whole band as a C-contiguous float32 slab, the
     float64 vectors its size, and a window radius it serves."""
     raw = getattr(ctx.bands, 'raw', None)
-    if (getattr(ctx.bands, 'raw_spans', None) is not None
-            or not isinstance(raw, np.ndarray) or raw.dtype != np.float32
+    if (not isinstance(raw, np.ndarray) or raw.dtype != np.float32
             or not raw.flags.c_contiguous or raw.ndim != 2):
         return False
     num_p, Lp = raw.shape
@@ -73,17 +72,18 @@ def walks_natively(ctx):
             and np.size(ctx.bias64()) == Lp and np.size(ctx.ir64()) == num_p)
 
 
-def window_stats64_twin(ctx, bgs, kept, sus, O_s, S, C):
+def window_stats64_twin(ctx, bgs, out):
     """Plain twin of :func:`window_stats64`: :func:`hostexact.exact_stats`
     and ``chunk_ids64`` over each background's pixels of each set, as the
     host completion calls them."""
-    sets = [tuple(t.numpy() for t in s) for s in (kept, sus)]
-    O_s = O_s.numpy()
-    B, K = len(bgs), sets[0][1].shape[1]
-    N = K + sets[1][1].shape[1]
+    _, S, C = out.hist.shape
+    O_s = out.sus.O.numpy()
+    B, K = len(bgs), out.d.shape[1]
+    N = K + out.sus.d.shape[1]
     stats = np.zeros((4, B, N))
     cell = np.full((B, N), -1, np.int32)
-    for off, (cnt, d, x) in zip((0, K), sets):
+    for off, pixels in ((0, out), (K, out.sus)):
+        cnt, d, x = (t.numpy() for t in (pixels.cnt, pixels.d, pixels.x))
         for b, (p, kind) in enumerate(bgs):
             n = int(cnt[b])
             got = hostexact.exact_stats(ctx, d[b, :n], x[b, :n], p, kind)
@@ -134,21 +134,21 @@ def _vectors_on(ctx, device):
     return vec
 
 
-def window_stats64(raw, ctx, bgs, kept, sus, O_s, S, C, lib=None):
+def window_stats64(raw, ctx, bgs, out, lib=None):
     """float64 [4, B, K + Ks] (O, E, Fold, ICE) and int32 [B, K + Ks]
     (chunk, count) cells of each background's kept pixels, then its
     suspects: ``chunk * C + count``, the chunk clipped to [0, S - 1] (0 for
     none), the count the kept pixel's ``clip(floor(O), 0, C - 1)`` and the
-    suspect's device count ``O_s``; a slot past its set's count holds
-    zeros and cell -1.
+    suspect's device count; a slot past its set's count holds zeros and
+    cell -1.
 
     ``raw``: the band [num_p, Lp] on the device; ``ctx``: the chromosome's
-    :class:`hostexact.ExactCtx`; ``bgs``: (p, kind) a background; ``kept``
-    and ``sus``: (count int32 [B], d int32 [B, K], x int32 [B, K]) on the
-    device, ``O_s`` int32 [B, Ks].  CPU tensors take the twin; CUDA tensors
-    launch the kernel or raise."""
+    :class:`hostexact.ExactCtx`; ``bgs``: (p, kind) a background; ``out``:
+    the batched scorer's ``ops.score.Compacted`` (the pixels and counts of
+    both sets, and the histogram's shape).  CPU tensors take the twin;
+    CUDA tensors launch the kernel or raise."""
     if raw.device.type == 'cpu':
-        return window_stats64_twin(ctx, bgs, kept, sus, O_s, S, C)
+        return window_stats64_twin(ctx, bgs, out)
     if raw.device.type != 'cuda':
         raise ValueError(f'window_stats64: band on {raw.device}')
     if not walks_natively(ctx) or tuple(raw.shape) != ctx.bands.raw.shape:
@@ -157,7 +157,10 @@ def window_stats64(raw, ctx, bgs, kept, sus, O_s, S, C, lib=None):
                          'walk does')
     if raw.dtype != torch.float32 or not raw.is_contiguous():
         raise TypeError('window_stats64: a contiguous float32 band required')
-    for t in (*kept, *sus, O_s):
+    _, S, C = out.hist.shape
+    kept = _contiguous((out.cnt, out.d, out.x))
+    sus = _contiguous((out.sus.cnt, out.sus.d, out.sus.x, out.sus.O))
+    for t in (*kept, *sus):
         if t.dtype != torch.int32 or t.device != raw.device:
             raise TypeError('window_stats64: int32 counts and indices on '
                             'the band\'s device required')
@@ -167,8 +170,7 @@ def window_stats64(raw, ctx, bgs, kept, sus, O_s, S, C, lib=None):
     lib = lib or load()
     dev = raw.device
     bgs = tuple((int(p), kind) for p, kind in bgs)
-    kept, sus = _contiguous(kept), _contiguous((*sus, O_s))
-    B, K, Ks = len(bgs), kept[1].shape[1], sus[1].shape[1]
+    B, K, Ks = len(bgs), out.d.shape[1], out.sus.d.shape[1]
     meta = _meta_on(tuple(ctx.plan), bgs, dev)
     edges = _edges_on(dev)
     vec = _vectors_on(ctx, dev)
@@ -199,13 +201,14 @@ def _ptrs(ts):
     return [t.data_ptr() for t in ts]
 
 
-def finish64_twin(hist, cell, stats, kept, sus, ptab, sig):
+def finish64_twin(out, cell, stats, ptab, sig):
     """Plain twin of :func:`finish64`: the host completion's own table
     steps (``core/hostcomplete``), a background at a time."""
     from ..core import hostcomplete as hc
-    hist, cell, stats, ptab = (t.numpy() for t in (hist, cell, stats, ptab))
-    cnt_k, d_k, x_k = (t.numpy() for t in kept)
-    cnt_s, d_s, x_s, cid_s, O_s, gap_s, thr = (t.numpy() for t in sus)
+    hist, cell, stats, ptab = (t.numpy()
+                               for t in (out.hist, cell, stats, ptab))
+    cnt_k, d_k, x_k = (t.numpy() for t in (out.cnt, out.d, out.x))
+    cnt_s, d_s, x_s, cid_s, O_s, gap_s, thr = (t.numpy() for t in out.sus)
     B, S, C = hist.shape
     K, N = d_k.shape[1], cell.shape[1]
     rows = np.zeros((B, N, 7))
@@ -230,25 +233,26 @@ def finish64_twin(hist, cell, stats, kept, sus, ptab, sig):
             torch.from_numpy(fin.reshape(-1)), torch.from_numpy(head))
 
 
-def finish64(hist, cell, stats, kept, sus, ptab, sig, lib=None):
+def finish64(out, cell, stats, ptab, sig, lib=None):
     """The BH tables, the lookups and the audit of the batched scorer's
     completion: float64 [B * N, 7] rows (x, y, O, ICE, Fold, p, q), bool
     [B * N] kept, and int64 [2, B]: each background's kept rows and the
     audit's cells (significant below the device's threshold, holding a
     pixel that is not a suspect).  A row is set where it is kept.
 
-    ``hist``: the int32 [B, S, C] histogram; ``cell`` and ``stats``:
-    :func:`window_stats64`'s; ``kept``: (count, d, x); ``sus``: the
-    suspect bundle (count, d, x, device chunk, device count, gap, keep
-    threshold [B, S]); ``ptab``: the float64 [S, C] p table on the
-    device.  CPU tensors take the twin; CUDA tensors launch the kernel or
-    raise."""
+    ``out``: the batched scorer's ``ops.score.Compacted``; ``cell`` and
+    ``stats``: :func:`window_stats64`'s; ``ptab``: the float64 [S, C] p
+    table on the device.  CPU tensors take the twin; CUDA tensors launch
+    the kernel or raise."""
+    hist, sus = out.hist, out.sus
     if hist.device.type == 'cpu':
-        return finish64_twin(hist, cell, stats, kept, sus, ptab, sig)
+        return finish64_twin(out, cell, stats, ptab, sig)
     B, S, C = hist.shape
-    ints = (hist, cell, *kept, *sus[:5], sus[6])
+    kept = (out.cnt, out.d, out.x)
+    ints = (hist, cell, *kept, sus.cnt, sus.d, sus.x, sus.cid, sus.O,
+            sus.thr)
     if (any(t.dtype != torch.int32 or t.device != hist.device for t in ints)
-            or sus[5].dtype != torch.bool):
+            or sus.gap.dtype != torch.bool):
         raise TypeError('finish64: int32 histogram, cells, counts and '
                         'indices and bool gap flags on one device required')
     if S < 2 or tuple(ptab.shape) != (S, C) or ptab.dtype != torch.float64:
@@ -258,8 +262,8 @@ def finish64(hist, cell, stats, kept, sus, ptab, sig, lib=None):
     lib = lib or load()
     dev = hist.device
     hist, cell, stats, ptab = _contiguous((hist, cell, stats, ptab))
-    kept, sus = _contiguous(kept), _contiguous(sus)
-    K, Ks = kept[1].shape[1], sus[1].shape[1]
+    kept, sus = _contiguous(kept), sus._make(_contiguous(sus))
+    K, Ks = out.d.shape[1], sus.d.shape[1]
     T = B * (K + Ks)
     h = torch.empty((B, S, C), dtype=torch.int32, device=dev)
     qtab = torch.empty((B, S, C), dtype=torch.float64, device=dev)
@@ -270,7 +274,8 @@ def finish64(hist, cell, stats, kept, sus, ptab, sig, lib=None):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.lib.hp_finish64(
             hist.data_ptr(), cell.data_ptr(), stats.data_ptr(), B, S, C,
-            *_ptrs(kept), K, *_ptrs(sus[:3]), Ks, *_ptrs(sus[3:7]),
+            *_ptrs(kept), K, *_ptrs((sus.cnt, sus.d, sus.x)), Ks,
+            *_ptrs((sus.cid, sus.O, sus.gap, sus.thr)),
             ptab.data_ptr(), sig,
             h.data_ptr(), qtab.data_ptr(), rows.data_ptr(), fin.data_ptr(),
             head.data_ptr(), stream)

@@ -20,6 +20,7 @@ number of a tensor) is a ``hicpeaks.sync`` span (``core/spans``).
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -368,3 +369,39 @@ def compact_mask(keep):
     (count int32, d_idx [count], x_idx [count]), with no cap."""
     cnt, d_idx, x_idx = compact_mask_batched(keep[None])
     return cnt[0], d_idx[0], x_idx[0]
+
+
+class Suspects(NamedTuple):
+    """The batched scorer's lambda-chunk edge suspects, set aside for
+    float64 completion, each field with a leading [B] axis."""
+    cnt: object     # int32 [B] suspects a background
+    d: object       # int32 [B, Ks] row-major, the last cell past the count
+    x: object
+    cid: object     # int32 device chunk
+    O: object       # int32 device count, clamp(floor(O), 0, o_cap)
+    gap: object     # bool gap flag
+    thr: object     # int32 [B, S] keep thresholds
+
+
+class Compacted(NamedTuple):
+    """The batched pyHICCUPS scorer's hand-off to completion, each field
+    with a leading [B] axis: tensors on the device, numpy arrays once
+    fetched (``engine._to_host``)."""
+    cnt: object     # int32 [B] kept pixels a background
+    d: object       # int32 [B, K] row-major, the last cell past the count
+    x: object
+    O: object
+    ICE: object
+    Fold: object
+    cid: object     # int32 device chunk, 0 where not valid
+    hist: object    # int32 [B, S, C] (chunk, count) histogram
+    prod: object    # the postcheck's [B, num_p, Lp] or its handle; not fetched
+    sus: object     # Suspects; None without float64 completion
+
+
+def one_background(rec, b):
+    """Background ``b`` of a record: row ``b`` of each field, a nested
+    record's too; a field that is None stays None."""
+    return type(rec)._make(
+        a if a is None else one_background(a, b) if isinstance(a, tuple)
+        else a[b] for a in rec)

@@ -24,6 +24,7 @@ from hicpeaks_tpu_torch.io.coolerlite import (CoolerLite, binnify,
 from hicpeaks_tpu_torch.ops import apa_ops as tapa
 
 from .test_apa import _StubClr
+from .torch_threads import one_intra_op_thread  # noqa: F401
 
 WINDOWS = (3, 5, 7)
 POS = [(20, 60), (3, 50), (10, 40), (30, 36), (114, 118), (50, 90),

@@ -12,6 +12,8 @@ from hicpeaks_tpu.io.synth import synthesize_chrom
 from hicpeaks_tpu_torch import api as tapi
 from hicpeaks_tpu_torch.core import engine as tengine
 
+from .torch_threads import one_intra_op_thread  # noqa: F401
+
 CFG = HiccupsConfig(pw=(1,), ww=(3,), maxww=8, maxapart=1500000)
 BCFG = BHFDRConfig(pw=1, ww=3, maxww=8, maxapart=1500000)
 

@@ -22,6 +22,7 @@ from hicpeaks_tpu_torch.ops import score as tscore
 
 from .oracle import reference_impl as oracle
 from .oracle.prep import prepare_chrom
+from .torch_threads import one_intra_op_thread  # noqa: F401
 
 CFG = BHFDRConfig(pw=1, ww=3, maxww=10, siglevel=0.05, maxapart=2000000)
 # (n_bins, seed, depth): test_engine_parity's parity cooler and its

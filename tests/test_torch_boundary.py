@@ -16,6 +16,8 @@ import numpy as np
 import pytest
 import torch
 
+from .torch_threads import one_intra_op_thread  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _PROBE = textwrap.dedent('''

@@ -17,6 +17,8 @@ from hicpeaks_tpu.cli import peakcall as jcli
 from hicpeaks_tpu.io.synth import synthetic_cooler
 from hicpeaks_tpu_torch.cli import peakcall as tcli
 
+from .torch_threads import one_intra_op_thread  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARGV = {'pyBHFDR': ['--pw', '1', '--ww', '3'],
         'pyHICCUPS': ['--pw', '1', '--ww', '3', '--maxww', '8',

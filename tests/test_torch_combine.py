@@ -14,6 +14,8 @@ from hicpeaks_tpu_torch.cli import combine as tcli
 from hicpeaks_tpu_torch.core.combine import combine_annotations as tcombine
 from hicpeaks_tpu_torch.io.synth import synthesize_chrom_multires as tmultires
 
+from .torch_threads import one_intra_op_thread  # noqa: F401
+
 RESOLUTIONS = (5000, 10000, 25000)
 
 

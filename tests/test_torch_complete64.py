@@ -24,6 +24,8 @@ from hicpeaks_tpu_torch.io.synth import synthesize_chrom
 from hicpeaks_tpu_torch.ops import cuda_complete, hostexact, score
 from hicpeaks_tpu_torch.ops.band import build_bands
 
+from .torch_threads import one_intra_op_thread  # noqa: F401
+
 CONFIGS = [((1,), (3,), 8), ((1, 2), (3, 5), 8)]
 RES = 25000
 
@@ -54,13 +56,12 @@ def _same(got, want):
 
 
 def _host_route(out, bgs, ctx, sig):
-    """The host completion of the batched bundle ``out``, as the engine
+    """The host completion of the batched record ``out``, as the engine
     made it before the device route."""
-    fetched = tuple(np.array(t) for t in out[:8])
-    sus = tuple(np.array(t) for t in out[9])
+    fetched = engine._to_host(out._replace(prod=None))
     return [hostcomplete._compact_to_host(
-        tuple(a[b] for a in fetched), (out[8], b), sig, exact=(ctx, p, kind),
-        sus=tuple(a[b] for a in sus))
+        score.one_background(fetched, b), (out.prod, b), sig,
+        exact=(ctx, p, kind))
         for b, (p, _, kind, _) in enumerate(bgs)]
 
 
@@ -78,7 +79,7 @@ def _compared(monkeypatch):
         for g, w in zip(got, want):
             _same(g, w)
         seen['calls'] += 1
-        seen['suspects'] += int(out[9][0].sum())
+        seen['suspects'] += int(out.sus.cnt.sum())
         seen['rows'] += sum(len(g['x']) for g in got if g is not None)
         return got
     monkeypatch.setattr(engine, 'complete_on_device', both)
@@ -98,8 +99,16 @@ def test_device_route_dicts_equal_the_host_routes(pw, ww, maxww, dtype,
                    ww_min=min(ww), n_loops=30, depth=60.0)
     got = engine.hiccups_chrom(bands, cfg, device='cpu')
     assert seen['calls'] == 1 and seen['rows'] > 0 and seen['suspects'] > 0
-    monkeypatch.setattr(complete64, 'serves', lambda ctx: False)
+    _on_the_host(monkeypatch)
     assert engine.hiccups_chrom(bands, cfg, device='cpu') == got
+
+
+def _on_the_host(monkeypatch):
+    """The engine's float64 completion of the batched scorer done by the
+    host route in place of the device one."""
+    monkeypatch.setattr(engine, 'complete_on_device',
+                        lambda sh, out, bgs, ctx, sig:
+                        _host_route(out, bgs, ctx, sig))
 
 
 # ---- the suspect cases of tests/test_suspect_correction.py, through both
@@ -157,12 +166,13 @@ def _both(kept, sus, hist, ctx, sig):
         return torch.as_tensor(np.asarray(a))[None].to(dtype)
     n, d, x = kept
     O = np.zeros(len(d), np.float32)
-    out = (t(n), t(d), t(x), t(O, torch.float32),
-           t(O, torch.float32), t(O, torch.float32), t(np.zeros(len(d))),
-           t(hist), torch.zeros(1, 2, 2))
     ns, ds, xs, cid_s, O_s, gap_s, thr = sus
-    out = out + ((t(ns), t(ds), t(xs), t(cid_s), t(O_s),
-                  t(gap_s, torch.bool), t(thr)),)
+    out = score.Compacted(
+        t(n), t(d), t(x), O=t(O, torch.float32), ICE=t(O, torch.float32),
+        Fold=t(O, torch.float32), cid=t(np.zeros(len(d))), hist=t(hist),
+        prod=torch.zeros(1, 2, 2),
+        sus=score.Suspects(t(ns), t(ds), t(xs), cid=t(cid_s), O=t(O_s),
+                           gap=t(gap_s, torch.bool), thr=t(thr)))
     bgs = [(1, 5, 'K', 0)]
     sh = types.SimpleNamespace(raw=torch.zeros(2, 2))
     want = _host_route(out, bgs, ctx, sig)[0]
@@ -367,6 +377,19 @@ def _card_inputs(pw, ww):
     return ctx, bgs, kept, sus, O_s, cid_s, S, C
 
 
+def _record(dev, kept, sus, O_s, hist, cid=None, gap=None, thr=None):
+    """The ``Compacted`` on ``dev`` of numpy kept and suspect (count, d,
+    x) slots, the suspects' device counts ``O_s`` and an int32 [B, S, C]
+    histogram: the fields the completion's kernels read, with the
+    suspects' chunks, gap flags and thresholds where given."""
+    def t(a):
+        return None if a is None else torch.from_numpy(np.asarray(a)).to(dev)
+    return score.Compacted(
+        *map(t, kept), O=None, ICE=None, Fold=None, cid=None, hist=t(hist),
+        prod=None, sus=score.Suspects(*map(t, sus), cid=t(cid), O=t(O_s),
+                                      gap=t(gap), thr=t(thr)))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize('pw,ww', [((2,), (5,)), ((1, 2), (3, 5)),
                                    ((1, 2, 4), (3, 5, 7))])
@@ -380,21 +403,6 @@ def test_kernels_equal_twins_on_a_chr1_sized_band(device, pw, ww):
     assert cuda_complete.walks_natively(ctx)
     raw = torch.from_numpy(ctx.bands.raw)
 
-    def on(dev):
-        return ([torch.from_numpy(a).to(dev) for a in kept],
-                [torch.from_numpy(a).to(dev) for a in sus],
-                torch.from_numpy(O_s).to(dev))
-    k_h, s_h, o_h = on('cpu')
-    k_d, s_d, o_d = on(device)
-    want = cuda_complete.window_stats64(raw, ctx, bgs, k_h, s_h, o_h, S, C)
-    got = cuda_complete.window_stats64(raw.to(device), ctx, bgs, k_d, s_d,
-                                       o_d, S, C)
-    torch.cuda.synchronize()
-    assert torch.equal(got[0].cpu().view(torch.int64),
-                       want[0].view(torch.int64))
-    assert torch.equal(got[1].cpu(), want[1])
-    assert (want[1] >= C).sum() > 10000
-
     # a histogram holding every live slot at its device cell, thresholds
     # low enough that some cells keep pixels and some audits trip
     rng = np.random.default_rng(7)
@@ -404,14 +412,21 @@ def test_kernels_equal_twins_on_a_chr1_sized_band(device, pw, ww):
     thr = rng.integers(0, 30, (B, S)).astype(np.int32)
     gap = rng.random((B, 300)) < 0.1
     ptab = torch.from_numpy(np.array(hostcomplete.ptab64(S, C)))
+    rec_h, rec_d = (_record(dev, kept, sus, O_s, hist, cid_s, gap, thr)
+                    for dev in ('cpu', device))
 
-    def finish(dev, stats_cell, k, s, o):
-        cid, g, t = (torch.from_numpy(a).to(dev) for a in (cid_s, gap, thr))
-        return cuda_complete.finish64(
-            torch.from_numpy(hist).to(dev), stats_cell[1], stats_cell[0], k,
-            (*s, cid, o, g, t), ptab.to(dev), 0.05)
-    rows_w, fin_w, head_w = finish('cpu', want, k_h, s_h, o_h)
-    rows_g, fin_g, head_g = finish(device, got, k_d, s_d, o_d)
+    want = cuda_complete.window_stats64(raw, ctx, bgs, rec_h)
+    got = cuda_complete.window_stats64(raw.to(device), ctx, bgs, rec_d)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].cpu().view(torch.int64),
+                       want[0].view(torch.int64))
+    assert torch.equal(got[1].cpu(), want[1])
+    assert (want[1] >= C).sum() > 10000
+
+    rows_w, fin_w, head_w = cuda_complete.finish64(rec_h, want[1], want[0],
+                                                   ptab, 0.05)
+    rows_g, fin_g, head_g = cuda_complete.finish64(rec_d, got[1], got[0],
+                                                   ptab.to(device), 0.05)
     torch.cuda.synchronize()
     assert torch.equal(fin_g.cpu(), fin_w) and torch.equal(head_g.cpu(),
                                                            head_w)
@@ -458,9 +473,7 @@ def test_kernel_chunks_at_every_edge(device, S):
     def run(dev):
         return cuda_complete.window_stats64(
             torch.from_numpy(ctx.bands.raw).to(dev), ctx, bgs,
-            [torch.from_numpy(a).to(dev) for a in kept],
-            [torch.from_numpy(a).to(dev) for a in sus],
-            torch.from_numpy(O_s).to(dev), S, 2)
+            _record(dev, kept, sus, O_s, np.zeros((2, S, 2), np.int32)))
     with np.errstate(invalid='ignore', divide='ignore', over='ignore'):
         want = run('cpu')
     got = run(device)
@@ -484,9 +497,9 @@ def test_card_raises_where_the_native_walk_does_not_serve(device):
     ctx.bands.raw = ctx.bands.raw.astype(np.float64)
     with pytest.raises(ValueError, match='native walk'):
         cuda_complete.window_stats64(
-            raw, ctx, bgs, [torch.from_numpy(a).to(device) for a in kept],
-            [torch.from_numpy(a).to(device) for a in sus],
-            torch.ones((2, 4), dtype=torch.int32, device=device), 40, 2)
+            raw, ctx, bgs,
+            _record(device, kept, sus, np.ones((2, 4), np.int32),
+                    np.zeros((2, 40, 2), np.int32)))
 
 
 @pytest.mark.cuda
@@ -503,5 +516,5 @@ def test_card_tables_equal_the_host_completions(device, pw, ww, maxww,
     got = engine.hiccups_chrom(bands, cfg, device=device)
     assert cuda_complete.window_stats64.launches == n + 1
     assert len(got) > 0
-    monkeypatch.setattr(complete64, 'serves', lambda ctx: False)
+    _on_the_host(monkeypatch)
     assert engine.hiccups_chrom(bands, cfg, device=device) == got

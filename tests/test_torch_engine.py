@@ -14,6 +14,7 @@ from hicpeaks_tpu_torch.core import engine as tengine
 
 from .oracle import reference_impl as oracle
 from .oracle.prep import prepare_chrom
+from .torch_threads import one_intra_op_thread  # noqa: F401
 
 CONFIGS = [((1,), (3,), 8), ((1, 2), (3, 5), 8)]
 

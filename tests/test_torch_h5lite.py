@@ -16,6 +16,8 @@ from hicpeaks_tpu.io import coolerlite as jcl
 from hicpeaks_tpu_torch.io import coolerlite as tcl
 from hicpeaks_tpu_torch.io import h5lite
 
+from .torch_threads import one_intra_op_thread  # noqa: F401
+
 RES = 10000
 SIZES = {'1': 2_000_000, '2': 1_200_000, 'X': 700_000}
 STATS = {'tol': 1e-5, 'min_nnz': 10, 'min_count': 0, 'mad_max': 5,

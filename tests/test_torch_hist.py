@@ -14,6 +14,8 @@ from hicpeaks_tpu.ops import score as jscore
 from hicpeaks_tpu.ops.pallas_hist import chunk_hist_pallas
 from hicpeaks_tpu_torch.ops import cuda_hist
 
+from .torch_threads import one_intra_op_thread  # noqa: F401
+
 
 def _case(n, o_cap, seed):
     rng = np.random.default_rng(seed)

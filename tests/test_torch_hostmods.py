@@ -23,6 +23,8 @@ from hicpeaks_tpu_torch.io.coolerlite import CoolerLite as TCoolerLite
 from hicpeaks_tpu_torch.ops import band as tband
 from hicpeaks_tpu_torch.ops import hostexact as thostexact
 
+from .torch_threads import one_intra_op_thread  # noqa: F401
+
 PLANS = [((2,), (5,), 10), ((1, 2), (3, 5), 10), ((1, 2, 3), (3, 5, 6), 8),
          ((3, 1), (6, 4), 9), ((2,), (2,), 2)]
 

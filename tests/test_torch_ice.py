@@ -16,6 +16,7 @@ from hicpeaks_tpu.ops import ice as jice
 from hicpeaks_tpu_torch.io import coolerlite as tcl
 from hicpeaks_tpu_torch.ops import ice as tice
 from .test_ice import _numpy_ice, _random_symmetric_counts
+from .torch_threads import one_intra_op_thread  # noqa: F401
 
 RTOL = 1e-9
 CPU = jax.devices('cpu')[0]

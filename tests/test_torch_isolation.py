@@ -11,6 +11,8 @@ import re
 
 import pytest
 
+from .torch_threads import one_intra_op_thread  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, 'hicpeaks_tpu_torch')
 
@@ -101,3 +103,31 @@ def test_checker_flags_each_kind_of_fault(tmp_path, src):
                  'REF = "hicpeaks_tpu/ops/pallas_scan.py:141"\n' + src + '\n')
     bad = violations(str(f))
     assert [line for line, _ in bad] == [3], bad
+
+
+def _imports_thread_fixture(tree):
+    return any(isinstance(node, ast.ImportFrom) and node.level == 1
+               and node.module == 'torch_threads'
+               and any(a.name == 'one_intra_op_thread' for a in node.names)
+               for node in ast.walk(tree))
+
+
+def test_every_port_test_module_runs_on_one_intra_op_thread():
+    """Every tests/test_torch_*.py imports the shared one-thread fixture
+    (tests/torch_threads.py), and that module imports nothing but pytest
+    and torch, as the card's host runs these files without JAX."""
+    tests = os.path.join(REPO, 'tests')
+    missing = []
+    for name in sorted(os.listdir(tests)):
+        if name.startswith('test_torch_') and name.endswith('.py'):
+            with open(os.path.join(tests, name)) as f:
+                if not _imports_thread_fixture(ast.parse(f.read(), name)):
+                    missing.append(name)
+    assert not missing, f'without the shared thread fixture: {missing}'
+    with open(os.path.join(tests, 'torch_threads.py')) as f:
+        tree = ast.parse(f.read())
+    names = {a.name for node in ast.walk(tree)
+             if isinstance(node, ast.Import) for a in node.names}
+    assert not any(isinstance(node, ast.ImportFrom)
+                   for node in ast.walk(tree))
+    assert names == {'pytest', 'torch'}, names

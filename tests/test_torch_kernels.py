@@ -13,6 +13,8 @@ from hicpeaks_tpu_torch.core import poolplan
 from hicpeaks_tpu_torch.ops import cuda_hist, cuda_scan
 from hicpeaks_tpu_torch.ops import scan as twin
 
+from .torch_threads import one_intra_op_thread  # noqa: F401
+
 pytestmark = pytest.mark.cuda
 
 

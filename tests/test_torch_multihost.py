@@ -21,6 +21,9 @@ import sys
 import numpy as np
 import pytest
 
+if __name__ != '__main__':    # the workers run this file as a script
+    from .torch_threads import one_intra_op_thread  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RES = 25000
 BCFG = dict(pw=1, ww=3, maxww=6, maxapart=1_000_000)

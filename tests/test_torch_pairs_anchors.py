@@ -24,6 +24,8 @@ from portbench import compare
 from portbench.gen import synth
 from portbench.reference import banded
 
+from .torch_threads import one_intra_op_thread  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RES = 10000
 L, MAXAPART = 400, 1_500_000

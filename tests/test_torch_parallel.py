@@ -23,6 +23,8 @@ from hicpeaks_tpu_torch.ops.band import bands_from_cooler
 from hicpeaks_tpu_torch.parallel import tiles
 from hicpeaks_tpu_torch.parallel.mesh import TileMesh, make_tile_mesh
 
+from .torch_threads import one_intra_op_thread  # noqa: F401
+
 HCFG = HiccupsConfig(pw=(1, 2), ww=(3, 5), maxww=8, maxapart=2000000,
                      min_marginal_peaks=2, min_local_reads=16)
 BCFG = BHFDRConfig(pw=1, ww=3, maxww=8, maxapart=2000000)

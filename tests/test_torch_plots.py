@@ -14,6 +14,8 @@ from hicpeaks_tpu_torch.cli import apa as tapa
 from hicpeaks_tpu_torch.cli import peakplot as tpeakplot
 from hicpeaks_tpu_torch.io.coolerlite import CoolerLite as TCoolerLite
 
+from .torch_threads import one_intra_op_thread  # noqa: F401
+
 RES = 25000
 
 

@@ -22,6 +22,8 @@ from hicpeaks_tpu_torch.io.coolerlite import (CoolerLite, binnify,
 from hicpeaks_tpu_torch.io.synth import synthesize_chrom
 from hicpeaks_tpu_torch.parallel.mesh import make_tile_mesh
 
+from .torch_threads import one_intra_op_thread  # noqa: F401
+
 CFG = HiccupsConfig(pw=(1,), ww=(3,), maxww=8, maxapart=1500000)
 BCFG = BHFDRConfig(pw=1, ww=3, maxww=8, maxapart=1500000)
 CALLS = {'call_hiccups': CFG, 'call_bhfdr': BCFG}

@@ -22,6 +22,8 @@ from hicpeaks_tpu.ops.pallas_scan import (scan_pass_a_pallas,
                                           scan_pass_b_pallas)
 from hicpeaks_tpu_torch.ops import cuda_scan
 
+from .torch_threads import one_intra_op_thread  # noqa: F401
+
 
 def _inputs(num_p, Lp, L, d_lo, maxww, seed, density=0.4, lam=6.0):
     rng = np.random.default_rng(seed)

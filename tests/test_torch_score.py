@@ -13,6 +13,8 @@ from hicpeaks_tpu_torch.core import poolplan as tpoolplan
 from hicpeaks_tpu_torch.core.engine import _chunk_margin
 from hicpeaks_tpu_torch.ops import score as tscore
 
+from .torch_threads import one_intra_op_thread  # noqa: F401
+
 
 def _vectors(num_p, Lp, L, dtype, seed):
     rng = np.random.default_rng(seed)
@@ -185,7 +187,10 @@ def test_chunk_bh_keep_batched_matches_jax(sig, o_cap):
 
 
 def test_host_completion_copies_match_jax():
-    """The torch-free copies of host_chunk_qtab64/host_chunk_complete."""
+    """The torch-free copy of host_chunk_qtab64, and the host completion's
+    (chunk, count) lookup of the device's statistics (``_compact_to_host``
+    without float64 statistics): host_chunk_complete's p and q, in order
+    (sig 2 keeps every pixel)."""
     rng = np.random.default_rng(8)
     hist = rng.integers(0, 30, (40, 257)) * (rng.random((40, 257)) < 0.3)
     O = rng.integers(0, 300, 500).astype(np.float32)
@@ -193,6 +198,11 @@ def test_host_completion_copies_match_jax():
     for got, want in zip(hostcomplete.host_chunk_qtab64(hist),
                          jscore.host_chunk_qtab64(hist)):
         np.testing.assert_array_equal(got, want)
-    for got, want in zip(hostcomplete.host_chunk_complete(O, cid, hist),
-                         jscore.host_chunk_complete(O, cid, hist)):
-        np.testing.assert_array_equal(got, want)
+    at = np.arange(500, dtype=np.int32)
+    got = hostcomplete._compact_to_host(
+        tscore.Compacted(500, at * 0, at, O, O, O, cid, hist, None, None),
+        None, 2.0)
+    np.testing.assert_array_equal(got['x'], at)
+    for k, want in zip('pq', jscore.host_chunk_complete(O, cid, hist)):
+        assert got[k].dtype == want.dtype
+        np.testing.assert_array_equal(got[k], want)

@@ -26,20 +26,11 @@ from hicpeaks_tpu_torch.ops import cuda_score, score
 from hicpeaks_tpu_torch.ops.band import build_bands
 from hicpeaks_tpu_torch.parallel.mesh import make_tile_mesh
 
+from .torch_threads import one_intra_op_thread  # noqa: F401
+
 RES = 25000
 PAIRS = {'B2': ((2,), (5,)), 'B6': ((1, 2, 4), (3, 5, 7))}
 MAXAPART = 2_000_000
-
-
-@pytest.fixture(autouse=True, scope='module')
-def _one_intra_op_thread():
-    """One torch intra-op thread while this file runs: its many small CPU
-    ops otherwise wait on the pool's spinning threads wherever several
-    test processes share the cores (under pytest-xdist)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _cfg(pairs, **kw):
@@ -100,19 +91,21 @@ def _as_if_on_a_card(monkeypatch):
 
 
 def _same_bundle(got, want, gather_at):
-    """Two scorer bundles are the same: every tensor equal with one dtype,
-    the suspect bundle slot for slot, and the prod handle's values those
-    of the dense prod at the ``gather_at`` pixels of each background."""
-    assert len(got) == len(want) == 10
-    for i in (0, 1, 2, 3, 4, 5, 6, 7):
-        assert got[i].dtype == want[i].dtype, i
-        assert torch.equal(got[i], want[i]), i
-    assert len(got[9]) == len(want[9])
-    for i, (g, w) in enumerate(zip(got[9], want[9])):
-        assert g.dtype == w.dtype and torch.equal(g, w), f'suspects {i}'
-    prod = want[8]
+    """Two scorer records are the same: every tensor equal with one dtype,
+    the suspects field for field, and the prod handle's values those of
+    the dense prod at the ``gather_at`` pixels of each background."""
+    assert type(got) is type(want) is score.Compacted
+    for f in ('cnt', 'd', 'x', 'O', 'ICE', 'Fold', 'cid', 'hist'):
+        g, w = getattr(got, f), getattr(want, f)
+        assert g.dtype == w.dtype, f
+        assert torch.equal(g, w), f
+    assert (got.sus is None) == (want.sus is None)
+    if want.sus is not None:
+        for f, g, w in zip(score.Suspects._fields, got.sus, want.sus):
+            assert g.dtype == w.dtype and torch.equal(g, w), f'suspects {f}'
+    prod = want.prod
     for b, (d, x) in enumerate(gather_at):
-        vals = engine._gather_prod((got[8], b), list(zip(x, x + d)))
+        vals = engine._gather_prod((got.prod, b), list(zip(x, x + d)))
         assert vals.tobytes() == prod[b, d, x].cpu().numpy().tobytes(), b
 
 
@@ -121,10 +114,10 @@ def _pixels_of(bundle, num_p, Lp, n=400, seed=0):
     the band, as (d, x) int lists."""
     rng = np.random.default_rng(seed)
     out = []
-    for b in range(bundle[0].shape[0]):
-        k = int(bundle[0][b])
-        d = np.r_[bundle[1][b, :k].cpu().numpy(), rng.integers(0, num_p, n)]
-        x = np.r_[bundle[2][b, :k].cpu().numpy(), rng.integers(0, Lp, n)]
+    for b in range(bundle.cnt.shape[0]):
+        k = int(bundle.cnt[b])
+        d = np.r_[bundle.d[b, :k].cpu().numpy(), rng.integers(0, num_p, n)]
+        x = np.r_[bundle.x[b, :k].cpu().numpy(), rng.integers(0, Lp, n)]
         out.append((d.astype(np.int64), x.astype(np.int64)))
     return out
 
@@ -176,9 +169,9 @@ def test_fused_bundle_equals_the_eager_chains(pairs, monkeypatch):
     want = engine._compact_batched(*a, **kw)
     got = engine._compact_fused(
         *a, **{k: v for k, v in kw.items() if k != 'check'})
-    assert isinstance(got[8], cuda_score.PlaneProd)
-    assert int(want[0].sum()) > 0 and int(want[9][0].sum()) > 0
-    _same_bundle(got, want, _pixels_of(want, *want[8].shape[1:]))
+    assert isinstance(got.prod, cuda_score.PlaneProd)
+    assert int(want.cnt.sum()) > 0 and int(want.sus.cnt.sum()) > 0
+    _same_bundle(got, want, _pixels_of(want, *want.prod.shape[1:]))
 
 
 @pytest.mark.parametrize('pairs', ['B2', 'B6'])
@@ -334,8 +327,8 @@ def test_kernels_equal_the_eager_chain_at_chr1(device, pairs, monkeypatch):
     fused = engine._compact_fused(
         *a, **{k: v for k, v in kw.items() if k != 'check'})
     eager = _eager(a, kw)
-    assert int(eager[9][0].sum()) > 0
-    _same_bundle(fused, eager, _pixels_of(eager, *eager[8].shape[1:],
+    assert int(eager.sus.cnt.sum()) > 0
+    _same_bundle(fused, eager, _pixels_of(eager, *eager.prod.shape[1:],
                                           n=20000))
     torch.cuda.synchronize()
 
@@ -394,6 +387,6 @@ def test_kernels_equal_the_eager_chain_on_planted_cells(device):
         fused = engine._compact_fused(*a, **kw)
         eager = _eager(a, kw)
         _same_bundle(fused, eager, _pixels_of(eager, *sh.raw.shape, n=5000))
-        assert exact == bool(eager[9]) and (
-            not exact or int(eager[9][0].sum()) > 0)
+        assert exact == (eager.sus is not None) and (
+            not exact or int(eager.sus.cnt.sum()) > 0)
     torch.cuda.synchronize()

@@ -29,6 +29,8 @@ from hicpeaks_tpu_torch.ops.band import bands_from_cooler
 from hicpeaks_tpu_torch.parallel import multihost as tmultihost
 from hicpeaks_tpu_torch.parallel.mesh import make_tile_mesh
 
+from .torch_threads import one_intra_op_thread  # noqa: F401
+
 # The port's deliberate departures from JAX's signatures, by module and
 # qualified name; each must still depart (a stale entry fails)
 ALLOWED = {
@@ -107,7 +109,9 @@ NOT_PORTED = {
         'counts them, and nothing in JAX calls it',
     'ops.score.host_bh': _SCORE_HOST,
     'ops.score.host_bh_complete': _SCORE_HOST,
-    'ops.score.host_chunk_complete': _SCORE_HOST,
+    'ops.score.host_chunk_complete':
+        'float64 host completion: core.hostcomplete._compact_to_host '
+        'looks p and q up in the tables of core.hostcomplete.chunk_qtab',
     'ops.score.host_chunk_dense': _SCORE_HOST,
     'ops.score.host_chunk_qtab64': _SCORE_HOST,
 }

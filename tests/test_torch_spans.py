@@ -26,6 +26,7 @@ from hicpeaks_tpu_torch.ops.band import bands_from_cooler
 from hicpeaks_tpu_torch.parallel.mesh import make_tile_mesh
 
 from .test_torch_profile import _write_cooler
+from .torch_threads import one_intra_op_thread  # noqa: F401
 
 HCFG = HiccupsConfig(pw=(1, 2), ww=(3, 5), maxww=8, maxapart=2_000_000,
                      min_marginal_peaks=2, min_local_reads=16)
@@ -117,21 +118,23 @@ def _fail_audit(monkeypatch, target):
     host completion and in the device one."""
     real = engine._compact_to_host
 
-    def audited(*a, **k):
-        exact, sus = k.get('exact'), k.get('sus')
-        if exact and sus is not None and tuple(exact[1:]) == target:
-            k['sus'] = tuple(sus[:6]) + (np.asarray(sus[6]) + 10 ** 6,)
-        return real(*a, **k)
+    def audited(fetched, *a, **k):
+        exact = k.get('exact')
+        if exact and fetched.sus is not None and \
+                tuple(exact[1:]) == target:
+            fetched = fetched._replace(sus=fetched.sus._replace(
+                thr=np.asarray(fetched.sus.thr) + 10 ** 6))
+        return real(fetched, *a, **k)
     monkeypatch.setattr(engine, '_compact_to_host', audited)
     real_device = engine.complete_on_device
 
     def audited_device(sh, out, bgs, ctx, sig):
-        thr = out[9][6].clone()
+        thr = out.sus.thr.clone()
         for b, (p, _, kind, _) in enumerate(bgs):
             if (p, kind) == target:
                 thr[b] += 10 ** 6
-        sus = tuple(out[9][:6]) + (thr,)
-        return real_device(sh, out[:9] + (sus,) + out[10:], bgs, ctx, sig)
+        return real_device(sh, out._replace(sus=out.sus._replace(thr=thr)),
+                           bgs, ctx, sig)
     monkeypatch.setattr(engine, 'complete_on_device', audited_device)
 
 

@@ -27,6 +27,8 @@ from hicpeaks_tpu_torch.ops import score as score_ops
 from hicpeaks_tpu_torch.ops.band import bands_from_cooler
 from hicpeaks_tpu_torch.parallel.mesh import make_tile_mesh
 
+from .torch_threads import one_intra_op_thread  # noqa: F401
+
 SETTINGS = dict(maxww=8, maxapart=1500000)
 CALLERS = {
     'hiccups': (HiccupsConfig(pw=(1,), ww=(3,), **SETTINGS),

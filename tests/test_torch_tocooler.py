@@ -23,6 +23,8 @@ from hicpeaks_tpu_torch.io import chromsizes as tsizes
 from hicpeaks_tpu_torch.io import fastload
 from hicpeaks_tpu_torch.io.synth import write_txt
 
+from .torch_threads import one_intra_op_thread  # noqa: F401
+
 RES = 25000
 NBINS = {'21': 150, '22': 110}
 
